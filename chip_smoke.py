@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Chip smoke test of godot_whisper_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase carries on past its own):
+
+1. build  -- compile every CUDA kernel of the port from csrc/ with nvcc
+   (one process per source, in parallel); print the build seconds and
+   ptxas's register / spill lines.
+2. kernels -- each kernel against its plain PyTorch version on the card,
+   at the tiny.en main-path shapes and at large-v3 widths, with the
+   tolerance stated; then times (CUDA events, median) of kernel, plain
+   version and, where one exists, a single PyTorch library call computing
+   the same function (a yardstick only; the port never calls it).
+3. golden -- the nano model (numpy seed 3, f32) on the card reproduces
+   tests/golden/nano_decode.json["greedy"] and the clip scenarios
+   "multiwindow" and "translate" of tests/golden/nano_clip_scenarios.json
+   token for token.
+4. main path -- WhisperContext.synthetic("tiny.en", seed=0) (bf16)
+   .full(TranscribeParams(), 34 s of audio) with every launch counter set
+   to 0 just before; every kernel must have launched.
+
+Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_BF16 = 989e12            # dense tensor-core bf16
+PEAK_F32 = 67e12              # f32 outside the tensor cores
+TPU_OPS = "godot_whisper_tpu/ops/"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> None:
+    log(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def bound(n_bytes: float, n_ops: float, peak: float):
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def time_ms(torch, fn, reps: int = 30) -> float:
+    """Median of per-call CUDA-event times after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def tf32_round(torch, x):
+    """f32 rounded to TF32's 10-bit mantissa (nearest), as tensor cores
+    round GEMM inputs when TF32 is allowed."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def frozen_audio(seconds: float) -> np.ndarray:
+    """The deterministic clip of tests/test_golden_decode.py."""
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    x = (0.3 * np.sin(2 * np.pi * (220.0 + 60 * np.sin(
+        2 * np.pi * 0.07 * t)) * t)
+        + 0.2 * np.sin(2 * np.pi * 447.0 * t)
+        * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t)))
+    return x.astype(np.float32)
+
+
+def golden_audio_5s() -> np.ndarray:
+    t = np.arange(5 * 16000) / 16000.0
+    x = (0.3 * np.sin(2 * np.pi * 220.0 * t)
+         + 0.2 * np.sin(2 * np.pi * 447.0 * t)
+         * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t)))
+    return x.astype(np.float32)
+
+
+# --------------------------------------------------------------- phase 2 --
+def check_kernels(torch, gt, rng):
+    """Kernel vs plain version at the main-path and large-v3 shapes.
+    Returns per-kernel records (max error, timings, bound)."""
+    from godot_whisper_tpu_torch.audio.mel import frame_counts, pad_audio
+    from godot_whisper_tpu_torch.ops import attention as A
+    from godot_whisper_tpu_torch.ops import decode_attention as D
+    from godot_whisper_tpu_torch.ops import filter_sample as FS
+    from godot_whisper_tpu_torch.ops import mel_kernel as M
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.models.config import get_config
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    recs = {}
+
+    def tens(*shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, dtype)
+
+    # ---- K1 mel: 34 s clip bucketed to 60 s (tiny.en, 80 mels); large-v3
+    # widths use 128 mels.  Compared over the frames of real audio only
+    # (the zero tail clamps to the 1e-10 floor on both sides).  The limit
+    # is set from the readings (1 f32 ulp, 4.8e-7); a control run of the
+    # plain version with TF32-rounded GEMM inputs must exceed it, so the
+    # check tells the f32 DFT this kernel exists for from a coarser one.
+    audio = frozen_audio(34.0) + rng.standard_normal(34 * 16000).astype(
+        np.float32) * 0.01
+    n_real = frame_counts(len(audio))[1]
+    padded = pad_audio(audio)
+    bucket = -(-len(padded) // 480000) * 480000
+    padded = np.pad(padded, (0, bucket - len(padded)))
+    a16 = torch.from_numpy(padded.astype(np.float16)).to(dev)[None]
+    basis = torch.from_numpy(M.dft_basis()).to(dev)
+    mel_tol = 1e-4
+    for n_mels, tag in ((80, "tiny.en"), (128, "large-v3")):
+        filt = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
+        got = M.log_mel_raw(a16, basis, filt)
+        sync()
+        want = M.log_mel_raw_plain(a16, basis, filt)
+        e_max = float((got - want)[..., :n_real].abs().max())
+        frames = a16.float().unfold(-1, 400, 160)
+        spec = tf32_round(torch, frames) @ tf32_round(torch, basis)
+        power = spec[..., :201] ** 2 + spec[..., 201:] ** 2
+        coarse = torch.log10(torch.clamp(
+            tf32_round(torch, power) @ tf32_round(torch, filt).T,
+            min=1e-10)).transpose(1, 2)
+        e_tf32 = float((coarse - want)[..., :n_real].abs().max())
+        log(f"K1 mel [{tag}] {tuple(got.shape)}, {n_real} real frames: "
+            f"max_abs_err {e_max:.3e} (tol {mel_tol:g} in log10: f32 sums "
+            f"in another order); TF32 control {e_tf32:.3e} (must exceed "
+            "the tol)")
+        if not e_max < mel_tol:
+            fail("K1 mel disagrees with its plain version")
+        if not e_tf32 > mel_tol:
+            fail("K1 mel tolerance cannot tell a TF32 DFT from f32")
+        if tag == "tiny.en":
+            f = got.shape[2]
+            L = a16.shape[1]
+            ops = f * (400 * 201 * 4 + 201 * 3 + n_mels * 201 * 2)
+            nbytes = L * 2 + basis.numel() * 4 + filt.numel() * 4 \
+                + got.numel() * 4
+            recs["mel"] = dict(err=e_max, bound=bound(nbytes, ops, PEAK_F32),
+                               ms=time_ms(torch, lambda: M.log_mel_raw(
+                                   a16, basis, filt)),
+                               plain_ms=time_ms(torch, lambda:
+                                                M.log_mel_raw_plain(
+                                                    a16, basis, filt)),
+                               library_ms=None)
+
+    # ---- K2 encoder attention: (B*H, 1536, 64), t_valid 1500.  The bf16
+    # kernel keeps f32 to the end and rounds its output once, so it is
+    # held to the plain version in f32 on the same (bf16-valued) inputs
+    # within one bf16 rounding of each element, 2^-8 |x| (+1e-5 for f32
+    # sums in another order); the output's std is about 0.04.
+    for bh, tag in ((6, "tiny.en"), (20, "large-v3")):
+        q, k, v = (tens(bh, 1536, 64, dtype=torch.bfloat16) for _ in range(3))
+        got = A.flash_attention_bh(q, k, v, t_valid=1500)
+        sync()
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        want = A.attention_bh_plain(qf, kf, vf, t_valid=1500)
+        err = (got.float() - want).abs()
+        e_max = float(err.max())
+        e_rel = float((err / (want.abs() * 2.0 ** -8 + 1e-5)).max())
+        log(f"K2 enc_attn bf16 [{tag}] {tuple(q.shape)}: max_abs_err "
+            f"{e_max:.3e}, worst share of the per-element tol "
+            f"2^-8|x|+1e-5 {e_rel:.3f} (must be <= 1); output std "
+            f"{float(want.std()):.3e}")
+        if not e_rel <= 1.0:
+            fail("K2 encoder attention disagrees with its plain version")
+        gotf = A.flash_attention_bh(qf, kf, vf, t_valid=1500)
+        sync()
+        ef = float((gotf - want).abs().max())
+        log(f"K2 enc_attn f32 [{tag}]: max_abs_err {ef:.3e} (tol 2e-4)")
+        if not ef < 2e-4:
+            fail("K2 f32 disagrees with its plain version")
+        if tag == "tiny.en":
+            mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
+            q4, k4, v4 = (x.view(1, bh, 1536, 64) for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ops = 4 * bh * 1536 * 1500 * 64
+            nbytes = 4 * bh * 1536 * 64 * 2
+            recs["enc_attn"] = dict(
+                err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
+                ms=time_ms(torch, lambda: A.flash_attention_bh(
+                    q, k, v, t_valid=1500)),
+                plain_ms=time_ms(torch, lambda: A.attention_bh_plain(
+                    q, k, v, 1500)),
+                library_ms=time_ms(torch, lambda: sdpa(q4, k4, v4,
+                                                       attn_mask=mask)))
+
+    # ---- K3/K4 decode attention over merged-head caches
+    def dec_case(name, S, H, B, kv_group, C, L, lo_vals, split, hi, layer):
+        g = B // kv_group
+        q = tens(B, S, dtype=torch.bfloat16)
+        k = tens(L, g, C, S, dtype=torch.bfloat16)
+        v = tens(L, g, C, S, dtype=torch.bfloat16)
+        lo = torch.tensor(lo_vals, dtype=torch.int32, device=dev)
+        kw = dict(split=split, n_head=H, kv_group=kv_group, layer=layer)
+        got = D.decode_attention(q, k, v, lo, hi, **kw)
+        sync()
+        want = D.decode_attention_plain(q, k, v, lo, hi, **kw)
+        e_max = float((got - want).abs().max())
+        log(f"K3/K4 decode_attn [{name}] q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)} kv_group {kv_group}: max_abs_err {e_max:.3e} "
+            "(tol 1e-4: same bf16 inputs, f32 math in another order)")
+        if not e_max < 1e-4:
+            fail(f"decode attention [{name}] disagrees with its plain "
+                 "version")
+        return q, k, v, lo, kw, e_max
+
+    # tiny.en main path: prompt capacity 232, cache 512 slots, step 100
+    lo_self = [1, 1, 1, 1, 1]
+    self_case = dec_case("tiny.en self", 384, 6, 5, 1, 512, 4, lo_self,
+                         232, 333, 2)
+    cross5 = dec_case("tiny.en cross", 384, 6, 5, 5, 1536, 4, [1500] * 5,
+                      1536, 0, 3)
+    dec_case("tiny.en cross kv_group 1", 384, 6, 1, 1, 1536, 4, [1500],
+             1536, 0, 1)
+    dec_case("large-v3 cross", 1280, 20, 5, 5, 1536, 2, [1500] * 5, 1536,
+             0, 1)
+    dec_case("large-v3 self", 1280, 20, 5, 1, 512, 2, [3, 5, 7, 9, 11],
+             232, 300, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # slots each query row attends (operations) and K/V slots read (bytes)
+    for key, (q, k, v, lo, kw, e_max), row_slots, kv_slots, hi in (
+            ("decode_attn_k3", self_case, 5 * 102, 5 * 102, 333),
+            ("decode_attn_k4", cross5, 5 * 1500, 1500, 0)):
+        B, S = q.shape
+        H, kvg, layer = kw["n_head"], kw["kv_group"], kw["layer"]
+        C = k.shape[2]
+        dh = S // H
+        nbytes = 2 * kv_slots * S * 2 + B * S * 2 + B * S * 4
+        ops = 4 * row_slots * S
+        ql = q.view(B, H, 1, dh)
+        kl = k[layer].view(-1, C, H, dh).transpose(1, 2)
+        vl = v[layer].view(-1, C, H, dh).transpose(1, 2)
+        if kvg > 1:
+            kl = kl.expand(B, H, C, dh)
+            vl = vl.expand(B, H, C, dh)
+        slot = torch.arange(C, device=dev)
+        mask = ((slot[None] < lo[:, None]) | ((slot[None] >= kw["split"])
+                                             & (slot[None] < hi)))
+        mask = mask[:, None, None, :]
+        recs[key] = dict(
+            err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
+            ms=time_ms(torch, lambda: D.decode_attention(q, k, v, lo, hi,
+                                                         **kw)),
+            plain_ms=time_ms(torch, lambda: D.decode_attention_plain(
+                q, k, v, lo, hi, **kw)),
+            library_ms=time_ms(torch, lambda: sdpa(ql, kl, vl,
+                                                   attn_mask=mask)))
+
+    # ---- K5 filter + sample: 5 rows of raw logits; argmax and sampling
+    # rows, initial and mid-sequence timestamp states
+    for name in ("tiny.en", "large-v3"):
+        cfg = get_config(name)
+        V, beg = cfg.n_vocab, cfg.token_beg
+        logits = tens(5, V, scale=3.0)
+        sup = torch.zeros(V, dtype=torch.bool, device=dev)
+        sup[[cfg.token_not, cfg.token_sot, cfg.token_nosp, cfg.token_solm,
+             cfg.token_translate, cfg.token_transcribe,
+             cfg.token_prev]] = True
+        state = torch.tensor(
+            [[1, -1, -1, 0, 0, 3000, 1],
+             [0, beg + 5, 77, 5, 1, 10, 1],
+             [0, 123, beg + 3, 7, 1, 6, 0],
+             [0, 321, 322, 9, 0, 3000, 0],
+             [1, -1, -1, 0, 0, 3000, 0]], dtype=torch.int32, device=dev)
+        worst, tok_bad = 0.0, 0
+        for temp, seed in ((0.0, 0), (0.4, 12345), (1.0, 777)):
+            kw = dict(temperature=temp, seed=seed, eot=cfg.token_eot,
+                      beg=beg, space_id=220, max_initial_tid=50,
+                      suppress_blank=True, no_timestamps=False)
+            got = FS.fused_filter_sample(logits, sup, state, **kw)
+            sync()
+            want = FS.fused_filter_sample_plain(logits, sup, state, **kw)
+            tok_bad += int((got.token != want.token).sum())
+            tok_bad += int((got.tid != want.tid).sum())
+            for a, b in zip(got[1:5], want[1:5]):
+                worst = max(worst, float((a - b).abs().max()))
+        log(f"K5 filter_sample [{name}] (5, {V}) t in (0, 0.4, 1.0): "
+            f"token/tid mismatches {tok_bad}, max_abs_err {worst:.3e} "
+            "(tol: 0 mismatches; 1e-5 on p/plog/pt/ptsum)")
+        if tok_bad or not worst < 1e-5:
+            fail("K5 filter+sample disagrees with its plain version")
+        if name == "tiny.en":
+            kw = dict(temperature=0.0, seed=0, eot=cfg.token_eot, beg=beg,
+                      space_id=220, max_initial_tid=50, suppress_blank=True,
+                      no_timestamps=False)
+            nbytes = 5 * V * 4 + V + state.numel() * 4 + 5 * 6 * 4
+            ops = 5 * V * 30
+            recs["filter_sample"] = dict(
+                err=worst, bound=bound(nbytes, ops, PEAK_F32),
+                ms=time_ms(torch, lambda: FS.fused_filter_sample(
+                    logits, sup, state, **kw)),
+                plain_ms=time_ms(torch, lambda:
+                                 FS.fused_filter_sample_plain(
+                                     logits, sup, state, **kw)),
+                library_ms=None)
+    return recs
+
+
+# --------------------------------------------------------------- phase 3 --
+def check_goldens(torch, gt):
+    from godot_whisper_tpu_torch.decode.filters import build_filter_context
+    from godot_whisper_tpu_torch.decode.language import lang_id
+    from godot_whisper_tpu_torch.decode.window import WindowDecoder
+    from godot_whisper_tpu_torch.models.model import cross_kv, encoder_forward
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "golden", "nano_decode.json")) as f:
+        want_greedy = json.load(f)["greedy"]
+    with open(os.path.join(root, "tests", "golden",
+                           "nano_clip_scenarios.json")) as f:
+        want_clip = json.load(f)
+
+    def nano(base, name):
+        cfg = gt.get_config(base).replace(
+            n_audio_layer=2, n_text_layer=2, n_audio_state=128,
+            n_audio_head=4, n_text_state=128, n_text_head=4, name=name)
+        params = gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                                device="cuda")
+        return gt.WhisperContext.from_params(cfg, params, device="cuda")
+
+    ctx = nano("tiny.en", "nano")
+    cfg, pipe = ctx.config, ctx.pipeline
+    mel, _ = pipe.mel.device(golden_audio_5s())
+    enc = encoder_forward(pipe.params, cfg, mel[:, :3000].T[None])
+    xkv = cross_kv(pipe.params, cfg, enc)
+    wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
+                                                 device="cuda"))
+    res = wd.decode(pipe.params, xkv, np.asarray([cfg.token_sot], np.int32),
+                    n_decoders=1, temperature=0.0, seek=0, seek_end=500,
+                    suppress_blank=True, no_timestamps=False,
+                    single_segment=False, max_tokens=0, test_mode=False)
+    n = min(res.n_steps, 48)
+    got = {"n_steps": res.n_steps,
+           "tokens": [[int(x) for x in r[:n]] for r in res.tokens],
+           "tid": [[int(x) for x in r[:n]] for r in res.tok_tid],
+           "result_len": [int(x) for x in res.result_len],
+           "seek_delta": [int(x) for x in res.seek_delta],
+           "completed": [bool(x) for x in res.completed],
+           "failed": [bool(x) for x in res.failed],
+           "sum_logprobs": [round(float(x), 3)
+                            for x in res.sum_logprobs_all]}
+    log(f"golden greedy: {got['tokens'][0]} (want "
+        f"{want_greedy['tokens'][0]})")
+    if got != want_greedy:
+        fail(f"nano greedy golden differs: {got} vs {want_greedy}")
+
+    def scenario(c, audio, tparams, init):
+        p = c.pipeline
+        p.set_audio(audio)
+        cd = p.clip_decoder(tparams, [0.0], init, False)
+        outs = cd.run(p.params, p._mel_device[None], [p._mel_n_len], [0],
+                      [p._n_len_org], past_init=[[]])
+        W = int(outs.w[0])
+        return {"w": W, "done": bool(outs.done[0]),
+                "past_cnt": int(outs.past_cnt[0]),
+                "windows": [{
+                    "seek": int(outs.seek[0, k]),
+                    "delta": int(outs.delta[0, k]),
+                    "rl": int(outs.rl[0, k]),
+                    "emitted": bool(outs.emitted[0, k]),
+                    "temp": round(float(outs.temp[0, k]), 3),
+                    "tokens": [int(x) for x in outs.tokens[
+                        0, k, :min(int(outs.rl[0, k]), 24)]],
+                } for k in range(W)]}
+
+    p_open = gt.TranscribeParams(entropy_thold=-1e9, logprob_thold=-1e9,
+                                 best_of=1, temperature_inc=0.0)
+    mctx = nano("tiny", "nano-multi")
+    mcfg = mctx.config
+    for name, got in (
+            ("multiwindow", scenario(ctx, frozen_audio(34.0), p_open,
+                                     [cfg.token_sot])),
+            ("translate", scenario(mctx, frozen_audio(5.0), p_open,
+                                   [mcfg.token_sot,
+                                    mcfg.token_lang(lang_id("de")),
+                                    mcfg.token_translate]))):
+        log(f"golden clip {name}: windows "
+            f"{[(w['seek'], w['delta'], w['rl']) for w in got['windows']]}")
+        if got != want_clip[name]:
+            fail(f"nano clip golden {name!r} differs: {got} vs "
+                 f"{want_clip[name]}")
+
+
+# ------------------------------------------------------------------ main --
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import godot_whisper_tpu_torch as gt
+    from godot_whisper_tpu_torch.ops import kernels
+    from godot_whisper_tpu_torch.ops.attention import flash_attention_bh
+    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
+    from godot_whisper_tpu_torch.ops.filter_sample import fused_filter_sample
+    from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
+
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # ---- phase 1: build
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} sources")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
+                log(f"  [{name}] {line.strip()}")
+
+    # ---- phase 2: kernels vs plain versions
+    rng = np.random.default_rng(0)
+    recs = check_kernels(torch, gt, rng)
+
+    # ---- phase 3: goldens through the kernels
+    check_goldens(torch, gt)
+
+    # ---- phase 4: the main path
+    audio = frozen_audio(34.0)
+    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
+    counters = (log_mel_raw, flash_attention_bh, decode_attention,
+                fused_filter_sample)
+    for fn in counters:
+        fn.launches = 0
+    decode_attention.group_launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments = ctx.full(gt.TranscribeParams(), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    groups = dict(decode_attention.group_launches)
+    tm = ctx.timings
+    log(f"main path: tiny.en bf16, 34.0 s audio, {len(segments)} segments, "
+        f"wall {wall:.3f} s, {34.0 / wall:.2f} audio-s/s, "
+        f"{tm.n_decode} decode steps, {tm.n_encode} windows, "
+        f"{tm.n_fail_p} windows not emitted")
+    log(f"main path launches: {launches}, decode_attention by kv_group "
+        f"{groups}")
+    if min(launches.values()) == 0 or not (groups.get(1) and groups.get(5)):
+        fail("a kernel of the main path never launched")
+    for s in segments:
+        if not (0 <= s.t0 <= s.t1 and s.tokens and all(
+                0 <= t.id < ctx.config.n_vocab and np.isfinite(t.plog)
+                for t in s.tokens)):
+            fail(f"malformed segment {s}")
+
+    tpu = {"mel": "mel_kernel.py:77", "enc_attn": "attention.py:105",
+           "decode_attn_k3": "decode_attention.py:126",
+           "decode_attn_k4": "decode_attention.py:221",
+           "filter_sample": "filter_sample.py:113"}
+    names = {"mel": ("log_mel_raw", "mel.cu"),
+             "enc_attn": ("flash_attention_bh", "enc_attn.cu"),
+             "decode_attn_k3": ("decode_attention[kv_group=1]",
+                                "decode_attn.cu"),
+             "decode_attn_k4": ("decode_attention[kv_group=5]",
+                                "decode_attn.cu"),
+             "filter_sample": ("fused_filter_sample", "filter_sample.cu")}
+    n_launch = {"mel": launches["log_mel_raw"],
+                "enc_attn": launches["flash_attention_bh"],
+                "decode_attn_k3": groups.get(1, 0),
+                "decode_attn_k4": groups.get(5, 0),
+                "filter_sample": launches["fused_filter_sample"]}
+    out = []
+    for key, r in recs.items():
+        b_ms, b_by = r["bound"]
+        out.append({"name": names[key][0], "route": "cuda",
+                    "source": "godot_whisper_tpu_torch/csrc/" + names[key][1],
+                    "replaces": TPU_OPS + tpu[key],
+                    "launches": n_launch[key], "max_abs_err": r["err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": out}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else "nvidia-smi: no output", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,338 @@
+"""Whisper forward passes: conv stem + encoder, cross-KV precompute, decoder.
+
+PyTorch port of the JAX package's ``models/model.py`` (same semantics and
+the same public layouts):
+
+- conv stem: two conv1d(k=3, pad=1) + exact-erf GELU, second stride 2;
+- encoder: pre-LN blocks, the K projection has no bias, 4x GELU MLP,
+  final ln_post; positional embedding sliced to ``audio_ctx``;
+- cross-KV: K/V of every decoder layer projected once per window, kept
+  merged-head ``(L, B, T_pad, S)`` with ``t_valid``;
+- decoder: token + position embedding, self-attention over a merged-head
+  KV cache ``(L, B, C, S)``, cross-attention, logits against the token
+  embedding.
+
+bf16 rounding points follow the JAX package: every projection accumulates
+in f32, adds its f32 bias and rounds once to the compute dtype; LayerNorm
+and softmax run in f32.
+
+Where the JAX package returns a fresh cache, ``decoder_dense`` and
+``decoder_step`` write the new K/V rows INTO the cache they are given (a
+slot write instead of a copy of the whole cache every token) and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as Fn
+
+from ..ops.attention import flash_attention_bh
+from ..ops.decode_attention import decode_attention
+from .config import WhisperConfig
+
+Params = Dict[str, Any]
+
+_NEG = -1e30
+_BLOCK_C = 256  # cache-slot granularity (the decode-attention block)
+
+
+def param_compute_dtype(params: Params) -> torch.dtype:
+    return params["decoder"]["token_embed"].dtype
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Float32 LayerNorm (population variance) regardless of input dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * g + b
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation and an f32 result (the JAX package's
+    ``preferred_element_type=float32``)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+          out_dtype=None) -> torch.Tensor:
+    y = _matmul_f32(x, w)
+    if b is not None:
+        y = y + b
+    return y.to(out_dtype if out_dtype is not None else w.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return Fn.gelu(x, approximate="none")
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked attention for the dense decoder passes.  q (B, Tq, H, D);
+    k/v (B, Tk, H, D); additive f32 mask broadcastable to (B, H, Tq, Tk).
+    Returns (B, Tq, H, D) f32.  Probabilities are rounded to v's dtype
+    before the p @ v product, as in the JAX package."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                        v.float())
+
+
+# ================================================================== encoder ==
+def encoder_forward(params: Params, config: WhisperConfig,
+                    mel_window: torch.Tensor,
+                    audio_ctx: Optional[int] = None) -> torch.Tensor:
+    """Conv stem + transformer encoder.
+
+    mel_window: (B, 2 * audio_ctx, n_mels) float32.  Returns (B, audio_ctx,
+    n_state) in the compute dtype.  On a CUDA device the residual stream
+    runs pad-native: T is padded ONCE to a 512 multiple (1500 -> 1536), key
+    columns >= T are masked inside the attention kernel, and the pad is
+    sliced off at the end.  On the CPU it runs at T.
+    """
+    enc = params["encoder"]
+    n_ctx = audio_ctx or config.n_audio_ctx
+    n_head = config.n_audio_head
+    cdtype = enc["conv1"]["w"].dtype
+
+    # the f32 stem must not drop to TF32 inside cuDNN
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        x = mel_window.to(cdtype).transpose(1, 2)              # (B, M, T)
+        x = Fn.conv1d(x, enc["conv1"]["w"], padding=1)
+        x = _gelu(x.float() + enc["conv1"]["b"][:, None]).to(cdtype)
+        x = Fn.conv1d(x, enc["conv2"]["w"], stride=2, padding=1)
+    x = _gelu(x.float() + enc["conv2"]["b"][:, None]).transpose(1, 2)
+    x = (x + enc["pos_embed"][:n_ctx]).to(cdtype)              # (B, T, S)
+
+    b_sz, t_real, c = x.shape
+    d = c // n_head
+    t_pad = -(-t_real // 512) * 512
+    pad_native = (x.is_cuda and t_pad != t_real
+                  and (t_pad - t_real) * 10 <= t_real)
+    if pad_native:
+        x = Fn.pad(x, (0, 0, 0, t_pad - t_real))
+    t = x.shape[1]
+
+    def to_bh(z):   # (B, T, S) -> (B*H, T, D)
+        return z.reshape(b_sz, t, n_head, d).transpose(1, 2).reshape(
+            b_sz * n_head, t, d).contiguous()
+
+    blocks = enc["blocks"]
+    for li in range(config.n_audio_layer):
+        ln0 = {k: v[li] for k, v in blocks["attn_ln"].items()}
+        attn = {k: v[li] for k, v in blocks["attn"].items()}
+        ln1 = {k: v[li] for k, v in blocks["mlp_ln"].items()}
+        mlp = {k: v[li] for k, v in blocks["mlp"].items()}
+
+        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        q = to_bh(_proj(h, attn["wq"], attn["bq"]))
+        k = to_bh(_proj(h, attn["wk"]))
+        v = to_bh(_proj(h, attn["wv"], attn["bv"]))
+        o = flash_attention_bh(q, k, v,
+                               t_valid=t_real if pad_native else None)
+        o = o.reshape(b_sz, n_head, t, d).transpose(1, 2).reshape(b_sz, t, c)
+        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+
+        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
+        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        x = (x + h).to(cdtype)
+
+    if pad_native:
+        x = x[:, :t_real]
+    x = layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"])
+    return x.to(cdtype)
+
+
+# ================================================================= cross-KV ==
+def round_cache_len(n: int) -> int:
+    """Round a cache capacity up to the decode-attention block size."""
+    return max(-(-n // _BLOCK_C) * _BLOCK_C, _BLOCK_C)
+
+
+class CrossKV(NamedTuple):
+    """Merged-head cross-attention KV: k/v (L, B, T_pad, S), positions >=
+    t_valid are zero padding and masked out of every attention."""
+    k: torch.Tensor
+    v: torch.Tensor
+    t_valid: int
+
+
+def cross_kv(params: Params, config: WhisperConfig,
+             enc_out: torch.Tensor) -> CrossKV:
+    """Project the encoder output to every decoder layer's cross K/V, padded
+    on T to the decode-attention block size."""
+    ca = params["decoder"]["blocks"]["cross_attn"]
+    ks, vs = [], []
+    for li in range(config.n_text_layer):
+        ks.append(_proj(enc_out, ca["wk"][li]))
+        vs.append(_proj(enc_out, ca["wv"][li], ca["bv"][li]))
+    k, v = torch.stack(ks), torch.stack(vs)
+    t = k.shape[2]
+    t_pad = round_cache_len(t)
+    if t_pad != t:
+        k = Fn.pad(k, (0, 0, 0, t_pad - t))
+        v = Fn.pad(v, (0, 0, 0, t_pad - t))
+    return CrossKV(k=k.contiguous(), v=v.contiguous(), t_valid=t)
+
+
+# ================================================================== decoder ==
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (L, B, C, S) merged-head, C = cache capacity
+    v: torch.Tensor
+
+    @property
+    def cache_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_kv_cache(config: WhisperConfig, batch: int,
+                  cache_len: Optional[int] = None, dtype=torch.bfloat16,
+                  *, device) -> KVCache:
+    """Fresh zero cache, capacity rounded up to the kernel block."""
+    c = round_cache_len(cache_len if cache_len is not None
+                        else config.n_text_ctx)
+    shape = (config.n_text_layer, batch, c, config.n_text_state)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _embed(dec, tokens: torch.Tensor, positions: torch.Tensor, cdtype):
+    x = dec["token_embed"][tokens.long()].float()
+    return (x + dec["pos_embed"][positions.long()]).to(cdtype)
+
+
+def _logits(dec, x: torch.Tensor) -> torch.Tensor:
+    """x (..., S) -> (..., V) f32 against the token embedding."""
+    return _matmul_f32(x, dec["token_embed"].t())
+
+
+def _layer(blocks, li: int):
+    return {name: {k: v[li] for k, v in sub.items()}
+            for name, sub in blocks.items()}
+
+
+def decoder_dense(params: Params, config: WhisperConfig,
+                  tokens: torch.Tensor, positions: torch.Tensor,
+                  kv: KVCache, xkv: CrossKV, n_valid: torch.Tensor,
+                  logit_rows: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Decoder over T new tokens written at cache slots [0, T): the prompt
+    pass.  Slot c is visible to query t iff c <= t and c < n_valid[b].  ``logit_rows`` (B,) keeps
+    only those positions' logits.  Attention here is the plain masked
+    product (``mha``), as the JAX package leaves it to XLA.  Writes into
+    ``kv`` in place and returns (logits, kv)."""
+    dec = params["decoder"]
+    n_head = config.n_text_head
+    cdtype = param_compute_dtype(params)
+    B, T = tokens.shape
+    C = kv.cache_len
+    dev = tokens.device
+
+    x = _embed(dec, tokens, positions, cdtype)
+    nv = n_valid.reshape(-1, 1, 1, 1).to(dev)
+    c_pos = torch.arange(C, device=dev)[None, None, None, :]
+    q_idx = torch.arange(T, device=dev)[None, None, :, None]
+    ok = (c_pos <= q_idx) & (c_pos < nv)
+    zero = torch.zeros((), device=dev)
+    self_mask = torch.where(ok, zero, torch.full((), _NEG, device=dev))
+    t_pad = xkv.k.shape[2]
+    xok = torch.arange(t_pad, device=dev) < xkv.t_valid
+    cross_mask = torch.where(xok, zero, torch.full((), _NEG, device=dev))
+
+    def heads4(z):
+        return z.reshape(*z.shape[:-1], n_head, z.shape[-1] // n_head)
+
+    def attend(q, k, v, mask):
+        o = mha(heads4(q), heads4(k), heads4(v), mask)
+        return o.reshape(*o.shape[:-2], -1)
+
+    for li in range(config.n_text_layer):
+        layer = _layer(dec["blocks"], li)
+        ln0, attn = layer["attn_ln"], layer["attn"]
+        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        q = _proj(h, attn["wq"], attn["bq"])
+        kv.k[li, :, :T] = _proj(h, attn["wk"]).to(kv.k.dtype)
+        kv.v[li, :, :T] = _proj(h, attn["wv"], attn["bv"]).to(kv.v.dtype)
+        o = attend(q, kv.k[li], kv.v[li], self_mask)
+        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+
+        lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
+        h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
+        qc = _proj(h, cattn["wq"], cattn["bq"])
+        oc = attend(qc, xkv.k[li], xkv.v[li], cross_mask)
+        x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
+                      out_dtype=cdtype)
+
+        ln1, mlp = layer["mlp_ln"], layer["mlp"]
+        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
+        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        x = (x + h).to(cdtype)
+
+    x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"]).to(cdtype)
+    if logit_rows is not None:
+        x = x[torch.arange(B, device=dev), logit_rows.to(dev)][:, None]
+    return _logits(dec, x), kv
+
+
+def decoder_step(params: Params, config: WhisperConfig,
+                 token: torch.Tensor, pos: torch.Tensor, kv: KVCache,
+                 xkv: CrossKV, lo: torch.Tensor, slot: int, split: int,
+                 kv_group: int = 1) -> Tuple[torch.Tensor, KVCache]:
+    """The autoregressive hot step: one token per row.
+
+    ``pos`` (= n_prompt + i) drives the positional embedding; the cache
+    slot is the batch-uniform ``slot`` (= split + i), so per-row prompt
+    lengths are mask parameters (``lo``), never per-row write offsets.
+    Self- and cross-attention run the decode-attention kernel over the
+    full stacked caches with the layer as an index; ``kv_group`` rows share
+    one cross-KV row.  Writes the new K/V into ``kv`` in place and returns
+    (logits (B, V) f32, kv)."""
+    dec = params["decoder"]
+    n_head = config.n_text_head
+    cdtype = param_compute_dtype(params)
+    B = token.shape[0]
+    t_pad = xkv.k.shape[2]
+    cross_lo = torch.full((B,), xkv.t_valid, dtype=torch.int32,
+                          device=token.device)
+
+    x = _embed(dec, token, pos, cdtype)                        # (B, S)
+    for li in range(config.n_text_layer):
+        layer = _layer(dec["blocks"], li)
+        ln0, attn = layer["attn_ln"], layer["attn"]
+        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        q = _proj(h, attn["wq"], attn["bq"])
+        kv.k[li, :, slot] = _proj(h, attn["wk"]).to(kv.k.dtype)
+        kv.v[li, :, slot] = _proj(h, attn["wv"], attn["bv"]).to(kv.v.dtype)
+        o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
+                             n_head=n_head, layer=li)
+        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+
+        lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
+        h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
+        qc = _proj(h, cattn["wq"], cattn["bq"])
+        oc = decode_attention(qc, xkv.k, xkv.v, cross_lo, 0, split=t_pad,
+                              n_head=n_head, kv_group=kv_group, layer=li)
+        x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
+                      out_dtype=cdtype)
+
+        ln1, mlp = layer["mlp_ln"], layer["mlp"]
+        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
+        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        x = (x + h).to(cdtype)
+
+    x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"]).to(cdtype)
+    return _logits(dec, x), kv

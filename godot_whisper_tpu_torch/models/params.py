@@ -1,0 +1,135 @@
+"""Parameter trees: layout, dtype policy, random init, conversion from the
+JAX package.
+
+The layout is the JAX package's, so tests compare like with like:
+
+- per-layer weights are stacked on a leading layer axis;
+- matmul weights are ``(in, out)`` for ``x @ W``, in the compute dtype;
+- LayerNorm scales and biases, biases and positional embeddings stay f32.
+
+One difference: conv stem kernels are PyTorch's ``(out, in, width)``
+(``torch.nn.functional.conv1d``), where the JAX package keeps ``(width, in,
+out)`` for its NWC/WIO convolution.  ``params_from_jax`` and
+``params_to_numpy`` transpose them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..runtime.device import resolve_device
+from .config import WhisperConfig
+
+Params = Dict[str, Any]
+
+# Leaf keys that stay float32 under any compute dtype.
+_F32_KEYS = {"g", "b", "bq", "bv", "bo", "b0", "b1", "pos_embed"}
+_CONV_KEYS = {("encoder", "conv1", "w"), ("encoder", "conv2", "w")}
+
+
+def _map(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(tree, path)
+
+
+def cast_params(params: Params, compute_dtype) -> Params:
+    """Matmul weights -> compute_dtype; norms, biases and positional
+    embeddings -> float32."""
+    return _map(params, lambda t, path: t.to(
+        torch.float32 if path[-1] in _F32_KEYS else compute_dtype))
+
+
+def _numpy_to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: carry the bits across
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def params_from_jax(tree: Params) -> Params:
+    """Convert the JAX package's parameter tree (leaves as numpy arrays,
+    e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
+    tree of CPU tensors, bit for bit: dtypes are kept, conv kernels
+    transposed from ``(width, in, out)`` to ``(out, in, width)``."""
+    def leaf(a, path):
+        t = _numpy_to_torch(a)
+        if path in _CONV_KEYS:
+            t = t.permute(2, 1, 0).contiguous()
+        return t
+    return _map(tree, leaf)
+
+
+def params_to_numpy(params: Params) -> Params:
+    """The port's tree back in the JAX package's layout as numpy arrays
+    (bf16 leaves widened to float32, which is exact)."""
+    def leaf(t, path):
+        if path in _CONV_KEYS:
+            t = t.permute(2, 1, 0)
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.detach().cpu().contiguous().numpy()
+    return _map(params, leaf)
+
+
+def init_params(config: WhisperConfig, *, seed: int = 0,
+                compute_dtype=torch.bfloat16, scale: float = 0.02,
+                device=None) -> Params:
+    """Random-normal parameters: the same numpy generator, draw order and
+    dtype policy as the JAX package's ``init_params``, so both packages
+    hold identical weights for one seed.  ``device`` None is the card."""
+    rng = np.random.default_rng(seed)
+    c = config
+    S, V, M = c.n_audio_state, c.n_vocab, c.n_mels
+    La, Lt = c.n_audio_layer, c.n_text_layer
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    def ones(*shape):
+        return np.ones(shape, dtype=np.float32)
+
+    def zeros(*shape):
+        return np.zeros(shape, dtype=np.float32)
+
+    def attn(L):
+        return {"wq": w(L, S, S), "bq": zeros(L, S), "wk": w(L, S, S),
+                "wv": w(L, S, S), "bv": zeros(L, S), "wo": w(L, S, S),
+                "bo": zeros(L, S)}
+
+    def blocks(L, cross: bool):
+        b = {
+            "attn_ln": {"g": ones(L, S), "b": zeros(L, S)},
+            "attn": attn(L),
+            "mlp_ln": {"g": ones(L, S), "b": zeros(L, S)},
+            "mlp": {"w0": w(L, S, 4 * S), "b0": zeros(L, 4 * S),
+                    "w1": w(L, 4 * S, S), "b1": zeros(L, S)},
+        }
+        if cross:
+            b["cross_attn_ln"] = {"g": ones(L, S), "b": zeros(L, S)}
+            b["cross_attn"] = attn(L)
+        return b
+
+    tree = {
+        "encoder": {
+            "pos_embed": w(c.n_audio_ctx, S),
+            "conv1": {"w": w(3, M, S), "b": zeros(S)},
+            "conv2": {"w": w(3, S, S), "b": zeros(S)},
+            "ln_post": {"g": ones(S), "b": zeros(S)},
+            "blocks": blocks(La, cross=False),
+        },
+        "decoder": {
+            "pos_embed": w(c.n_text_ctx, S),
+            "token_embed": w(V, S),
+            "ln": {"g": ones(S), "b": zeros(S)},
+            "blocks": blocks(Lt, cross=True),
+        },
+    }
+    params = cast_params(params_from_jax(tree), compute_dtype)
+    dev = resolve_device(device)
+    return _map(params, lambda t, path: t.to(dev))

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
+
+    python3 profile_torch_main_path.py [--model tiny.en] [--seconds 34]
+
+Drives ``WhisperContext.synthetic(model, seed=0)`` (bf16) ``.full(
+TranscribeParams(), audio)`` on the deterministic test clip:
+
+1. one warm-up run (kernel build and load, cuBLAS and allocator warm-up);
+2. three timed runs (host clock around work that ends in a synchronize):
+   median wall, audio-seconds per second, decode steps, wall per step;
+3. one run under ``torch.profiler`` (CPU + CUDA activities): total device
+   time of all kernels and copies, device time and calls per kernel name,
+   kernel launches per decode step.  The profiler slows the host, not the
+   kernels, so the device busy share is that device time over the median
+   wall of the unprofiled runs (the rest is the host driving the loop);
+4. stage times with CUDA synchronizes around each stage: mel, one window's
+   encode (encoder + cross-KV), and one window's greedy decode
+   (``WindowDecoder.decode``: prompt pass + token loop) at the main path's
+   rows per stream, per decode step.
+
+Prints a human-readable breakdown and, as its last line, one JSON object.
+Needs a CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from chip_smoke import frozen_audio
+
+
+def _kernel_us(evt) -> float:
+    """Device time of a device-side event (kernel or copy); 0 for host
+    operator events, whose device time would count their kernels twice."""
+    from torch.autograd import DeviceType
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    for name in ("device_time_total", "cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="tiny.en")
+    ap.add_argument("--seconds", type=float, default=34.0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+    import godot_whisper_tpu_torch as gt
+    from godot_whisper_tpu_torch.decode.filters import build_filter_context
+    from godot_whisper_tpu_torch.decode.window import WindowDecoder
+    from godot_whisper_tpu_torch.models.model import cross_kv, encoder_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    audio = frozen_audio(args.seconds)
+    ctx = gt.WhisperContext.synthetic(args.model, seed=0)
+    tp = gt.TranscribeParams()
+    ctx.full(tp, audio)                                   # warm-up
+
+    walls, steps = [], 0
+    for _ in range(3):
+        ctx.pipeline.timings.reset()
+        sync()
+        t0 = time.perf_counter()
+        ctx.full(tp, audio)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        steps = ctx.timings.n_decode
+    wall = float(np.median(walls))
+
+    ctx.pipeline.timings.reset()
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctx.full(tp, audio)
+        sync()
+    prof_wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = _kernel_us(e)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    dev_total_us = sum(r[0] for r in rows)
+    kernel_calls = sum(r[1] for r in rows)
+
+    # ---- stage times at the main-path shapes
+    pipe, cfg, params = ctx.pipeline, ctx.config, ctx.pipeline.params
+
+    def timed(fn, reps=10):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        sync()
+        return (time.perf_counter() - t) / reps * 1e3, out
+
+    mel_ms, _ = timed(lambda: pipe.mel.device(audio))
+    mel, _ = pipe.mel.device(audio)
+    win = mel[:, :3000].T[None].contiguous()
+    enc_ms, xkv = timed(lambda: cross_kv(params, cfg, encoder_forward(
+        params, cfg, win)))
+    nd = max(tp.n_decoders_at(t) for t in tp.temperatures())
+    wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
+                                                 device="cuda"))
+    window_ms, res = timed(lambda: wd.decode(
+        params, xkv, np.asarray([cfg.token_sot], np.int32), n_decoders=nd,
+        temperature=0.0, seek=0, seek_end=pipe._n_len_org,
+        suppress_blank=tp.suppress_blank, no_timestamps=False,
+        single_segment=False, max_tokens=0, test_mode=False), reps=3)
+    loop_ms_per_step = window_ms / max(res.n_steps, 1)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}")
+    print(f"main path {args.model} bf16, {args.seconds} s audio: wall "
+          f"{[round(w, 4) for w in walls]} s (median {wall:.4f}), "
+          f"{args.seconds / wall:.2f} audio-s/s, {steps} decode steps, "
+          f"{wall / max(steps, 1) * 1e3:.3f} ms wall per step")
+    print(f"profiled run: wall {prof_wall:.4f} s (profiler-slowed host), "
+          f"device time {dev_total_us / 1e6:.4f} s = busy share "
+          f"{dev_total_us / 1e6 / wall:.3f} of the unprofiled median wall, "
+          f"{kernel_calls} kernels and copies, "
+          f"{kernel_calls / max(ctx.timings.n_decode, 1):.1f} per decode "
+          "step")
+    print("top device time by kernel (us total, calls, name):")
+    for us, n, key in rows[:15]:
+        print(f"  {us:12.1f} {n:7d}  {key[:100]}")
+    print(f"stages (synchronized): mel {mel_ms:.3f} ms, encode window "
+          f"{enc_ms:.3f} ms, greedy window decode ({nd} rows) "
+          f"{window_ms:.3f} ms = {loop_ms_per_step:.3f} ms per step over "
+          f"{res.n_steps} steps")
+    print(json.dumps({
+        "card": smi, "model": args.model, "audio_s": args.seconds,
+        "wall_s": walls, "steps": steps,
+        "audio_s_per_s": args.seconds / wall,
+        "profiled_wall_s": prof_wall, "device_s": dev_total_us / 1e6,
+        "busy_share": dev_total_us / 1e6 / wall,
+        "device_ops": kernel_calls,
+        "top": [{"us": us, "calls": n, "name": key[:120]}
+                for us, n, key in rows[:15]],
+        "stage_ms": {"mel": mel_ms, "encode_window": enc_ms,
+                     "window_decode": window_ms,
+                     "window_decode_per_step": loop_ms_per_step},
+        "window_steps": res.n_steps}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,179 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version at the main-path and large-v3 shapes, and the nano golden
+transcripts through the kernels.  Every test here needs an NVIDIA GPU
+(``cuda`` marker) and skips without one.  Imports no JAX, so that it runs
+where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import godot_whisper_tpu_torch as gt
+from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
+                                               pad_audio)
+from godot_whisper_tpu_torch.decode.filters import build_filter_context
+from godot_whisper_tpu_torch.decode.window import WindowDecoder
+from godot_whisper_tpu_torch.models.config import get_config
+from godot_whisper_tpu_torch.models.model import cross_kv, encoder_forward
+from godot_whisper_tpu_torch.ops import attention as A
+from godot_whisper_tpu_torch.ops import decode_attention as D
+from godot_whisper_tpu_torch.ops import filter_sample as FS
+from godot_whisper_tpu_torch.ops import mel_kernel as M
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_matches_plain(cuda, n_mels):
+    """Within 1e-4 (log10) of the plain f32 version over the frames of real
+    audio; the plain version with TF32-rounded GEMM inputs is not."""
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal(7 * 16000) * 0.1).astype(np.float32)
+    n_real = frame_counts(len(audio))[1]
+    padded = pad_audio(audio)
+    padded = np.pad(padded, (0, -(-len(padded) // 480000) * 480000
+                             - len(padded)))
+    a16 = torch.from_numpy(padded.astype(np.float16)).to(cuda)[None]
+    basis = torch.from_numpy(M.dft_basis()).to(cuda)
+    filt = torch.from_numpy(mel_filterbank(n_mels)).to(cuda)
+    before = M.log_mel_raw.launches
+    got = M.log_mel_raw(a16, basis, filt)
+    torch.cuda.synchronize()
+    assert M.log_mel_raw.launches == before + 1
+    want = M.log_mel_raw_plain(a16, basis, filt)
+    assert float((got - want)[..., :n_real].abs().max()) < 1e-4
+
+    def tf32(x):
+        i = x.contiguous().view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    spec = tf32(a16.float().unfold(-1, 400, 160)) @ tf32(basis)
+    power = spec[..., :201] ** 2 + spec[..., 201:] ** 2
+    coarse = torch.log10(torch.clamp(tf32(power) @ tf32(filt).T,
+                                     min=1e-10)).transpose(1, 2)
+    assert float((coarse - want)[..., :n_real].abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,t,d,t_valid", [(6, 1536, 64, 1500),
+                                            (20, 1536, 64, 1500),
+                                            (4, 1536, 32, 1500),
+                                            (3, 100, 64, 77)])
+def test_attention_kernel_matches_plain(cuda, dtype, bh, t, d, t_valid):
+    """f32: within 2e-4 of the plain version.  bf16: the kernel keeps f32
+    to the end and rounds its output once, so it is held to the plain
+    version in f32 on the same (bf16-valued) inputs within one bf16
+    rounding per element, 2^-8 |x| + 1e-5."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(bh, t, d, generator=g).to(cuda, getattr(
+        torch, dtype)) for _ in range(3))
+    before = A.flash_attention_bh.launches
+    got = A.flash_attention_bh(q, k, v, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bh.launches == before + 1
+    want = A.attention_bh_plain(q.float(), k.float(), v.float(), t_valid)
+    err = (got.float() - want).abs()
+    if dtype == "float32":
+        assert float(err.max()) < 2e-4
+    else:
+        assert bool((err <= want.abs() * 2.0 ** -8 + 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,b,kv_group,c,lo,split,hi", [
+    (384, 6, 5, 1, 512, [1, 2, 3, 4, 5], 232, 333),
+    (384, 6, 5, 5, 1536, [1500] * 5, 1536, 0),
+    (128, 4, 2, 2, 256, [100, 100], 256, 0),
+    (1280, 20, 5, 5, 1536, [1500] * 5, 1536, 0),
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, s, h, b,
+                                               kv_group, c, lo, split, hi):
+    g = torch.Generator().manual_seed(1)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, generator=g).to(cuda, dt)
+    k = torch.randn(2, b // kv_group, c, s, generator=g).to(cuda, dt)
+    v = torch.randn(2, b // kv_group, c, s, generator=g).to(cuda, dt)
+    lo_t = torch.tensor(lo, dtype=torch.int32, device=cuda)
+    kw = dict(split=split, n_head=h, kv_group=kv_group, layer=1)
+    before = D.decode_attention.launches
+    got = D.decode_attention(q, k, v, lo_t, hi, **kw)
+    torch.cuda.synchronize()
+    assert D.decode_attention.launches == before + 1
+    want = D.decode_attention_plain(q, k, v, lo_t, hi, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["tiny.en", "large-v3"])
+@pytest.mark.parametrize("temp", [0.0, 0.4, 1.0])
+def test_filter_sample_kernel_matches_plain(cuda, name, temp):
+    cfg = get_config(name)
+    V = cfg.n_vocab
+    g = torch.Generator().manual_seed(2)
+    logits = (torch.randn(5, V, generator=g) * 3).to(cuda)
+    sup = torch.zeros(V, dtype=torch.bool, device=cuda)
+    sup[[cfg.token_not, cfg.token_sot, cfg.token_prev]] = True
+    beg = cfg.token_beg
+    state = torch.tensor([[1, -1, -1, 0, 0, 3000, int(temp == 0)],
+                          [0, beg + 5, 77, 5, 1, 10, 0],
+                          [0, 123, beg + 3, 7, 1, 6, 0],
+                          [0, 321, 322, 9, 0, 3000, 1],
+                          [1, -1, -1, 0, 0, 3000, 0]], dtype=torch.int32,
+                         device=cuda)
+    kw = dict(temperature=temp, seed=99, eot=cfg.token_eot, beg=beg,
+              space_id=220, max_initial_tid=50, suppress_blank=True,
+              no_timestamps=False)
+    got = FS.fused_filter_sample(logits, sup, state, **kw)
+    torch.cuda.synchronize()
+    want = FS.fused_filter_sample_plain(logits, sup, state, **kw)
+    assert torch.equal(got.token, want.token)
+    assert torch.equal(got.tid, want.tid)
+    for a, b in zip(got[1:5], want[1:5]):
+        assert float((a - b).abs().max()) < 1e-5
+
+
+def test_greedy_golden_through_kernels(cuda):
+    """init_params(nano, seed=3) in f32 on the card reproduces
+    tests/golden/nano_decode.json["greedy"] token for token."""
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=2, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano")
+    ctx = gt.WhisperContext.from_params(
+        cfg, gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                            device=cuda),
+        device=cuda)
+    pipe = ctx.pipeline
+    t = np.arange(5 * 16000) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 220.0 * t)
+             + 0.2 * np.sin(2 * np.pi * 447.0 * t)
+             * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t))).astype(np.float32)
+    mel, _ = pipe.mel.device(audio)
+    xkv = cross_kv(pipe.params, cfg,
+                   encoder_forward(pipe.params, cfg, mel[:, :3000].T[None]))
+    wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
+                                                 device=cuda))
+    res = wd.decode(pipe.params, xkv, np.asarray([cfg.token_sot], np.int32),
+                    n_decoders=1, temperature=0.0, seek=0, seek_end=500,
+                    suppress_blank=True, no_timestamps=False,
+                    single_segment=False, max_tokens=0, test_mode=False)
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "nano_decode.json")) as f:
+        want = json.load(f)["greedy"]
+    n = res.n_steps
+    assert n == want["n_steps"]
+    assert res.tokens[0, :n].tolist() == want["tokens"][0]
+    assert res.tok_tid[0, :n].tolist() == want["tid"][0]
+    assert res.seek_delta.tolist() == want["seek_delta"]
