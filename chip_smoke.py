@@ -13,13 +13,23 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tolerance stated; then times (CUDA events, median) of kernel, plain
    version and, where one exists, a single PyTorch library call computing
    the same function (a yardstick only; the port never calls it).
+   Beam search's kernels too: K6 filter + top-K, K7 split prompt / live
+   attention (with a permuted row map) and K8 the bounded cache reorder
+   (into a NaN-filled cache, then K3 over it).
 3. golden -- the nano model (numpy seed 3, f32) on the card reproduces
-   tests/golden/nano_decode.json["greedy"] and the clip scenarios
-   "multiwindow" and "translate" of tests/golden/nano_clip_scenarios.json
-   token for token.
+   tests/golden/nano_decode.json["greedy"] and ["beam5"] (K6 + K7) and
+   the clip scenarios "multiwindow" and "translate" of
+   tests/golden/nano_clip_scenarios.json token for token.
 4. main path -- WhisperContext.synthetic("tiny.en", seed=0) (bf16)
    .full(TranscribeParams(), 34 s of audio) with every launch counter set
-   to 0 just before; every kernel must have launched.
+   to 0 just before; every kernel of the greedy path must have launched.
+5. beam path -- the same context .full(TranscribeParams(strategy=
+   BEAM_SEARCH), the same audio), counters zeroed just before; K6 and K7
+   must have launched and K4 with kv_group 5.
+6. wide beam route -- large-v3 widths (S 1280, 20 heads, 128 mels) with
+   the depth cut to 2 + 3 layers, beam 8 (8 x 20 heads > 128: the merged
+   cache), 10 s of audio, counters zeroed just before; K8 must have
+   launched and K7 not.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -321,6 +331,164 @@ def check_kernels(torch, gt, rng):
     return recs
 
 
+def check_beam_kernels(torch, rng):
+    """K6, K7 and K8 against their plain versions at the tiny.en beam path's
+    shapes and large-v3 widths; then their times."""
+    from godot_whisper_tpu_torch.models.config import get_config
+    from godot_whisper_tpu_torch.ops import decode_attention as D
+    from godot_whisper_tpu_torch.ops import filter_sample as FS
+    from godot_whisper_tpu_torch.ops import kv_reorder as R
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    recs = {}
+
+    def tens(*shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, dtype)
+
+    # ---- K6 filter + top-K: beam 5 rows, step-0 and mid-sequence states,
+    # a forced tie and two bit-identical rows
+    for name in ("tiny.en", "large-v3"):
+        cfg = get_config(name)
+        V, beg = cfg.n_vocab, cfg.token_beg
+        logits = tens(5, V, scale=3.0)
+        logits[:, [17, 900, 20000]] = 30.0
+        logits[4] = logits[3]
+        sup = torch.zeros(V, dtype=torch.bool, device=dev)
+        sup[[cfg.token_not, cfg.token_sot, cfg.token_nosp, cfg.token_solm,
+             cfg.token_translate, cfg.token_transcribe,
+             cfg.token_prev]] = True
+        state = torch.tensor(
+            [[1, -1, -1, 0, 0, 3000, 0],
+             [0, beg + 5, 77, 5, 1, 10, 0],
+             [0, 123, beg + 3, 7, 1, 6, 0],
+             [0, 321, 322, 9, 0, 3000, 0],
+             [0, 321, 322, 9, 0, 3000, 0]], dtype=torch.int32, device=dev)
+        kw = dict(K=5, temperature=0.0, eot=cfg.token_eot, beg=beg,
+                  space_id=220, max_initial_tid=50, suppress_blank=True,
+                  no_timestamps=False)
+        got = FS.fused_filter_topk(logits, sup, state, **kw)
+        sync()
+        want = FS.fused_filter_topk_plain(logits, sup, state, **kw)
+        bad = int((got.ids != want.ids).sum()) + int(
+            (got.tid != want.tid).sum())
+        worst = max(float((getattr(got, n) - getattr(want, n)).abs().max())
+                    for n in ("plog", "p", "pt", "ptsum"))
+        twins = all(bool(torch.equal(t[3], t[4])) for t in got)
+        log(f"K6 filter_topk [{name}] (5, {V}) K 5: id/tid mismatches {bad}, "
+            f"max_abs_err {worst:.3e}, tie order {got.ids[3, :3].tolist()}, "
+            f"identical rows equal {twins} (tol: 0 mismatches; 1e-5 on "
+            "plog/p/pt/ptsum; ties lowest id first)")
+        if (bad or not worst < 1e-5 or not twins
+                or got.ids[3, :3].tolist() != [17, 900, 20000]):
+            fail("K6 filter+top-K disagrees with its plain version")
+        if name == "tiny.en":
+            nbytes = 5 * V * 4 + V + state.numel() * 4 + 5 * (3 * 5 + 3) * 4
+            ops = 5 * V * (30 + 2 * 5)
+            recs["filter_topk"] = dict(
+                err=worst, bound=bound(nbytes, ops, PEAK_F32),
+                ms=time_ms(torch, lambda: FS.fused_filter_topk(
+                    logits, sup, state, **kw)),
+                plain_ms=time_ms(torch, lambda: FS.fused_filter_topk_plain(
+                    logits, sup, state, **kw)),
+                library_ms=None)
+
+    # ---- K7 split prompt / live attention: one stream of 5 beams, prompt
+    # capacity 256 (prompt_pad 232), live capacity 256, a permuted row map
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for S, H, L, tag in ((384, 6, 4, "tiny.en"), (1280, 20, 2, "large-v3")):
+        G, KB, CP, NL, lo_v, hi_live, layer = 1, 5, 256, 256, 120, 100, L - 1
+        B = G * KB
+        q = tens(B, S, dtype=torch.bfloat16)
+        kp, vp = (tens(L, G, CP, S, dtype=torch.bfloat16) for _ in range(2))
+        kl, vl = (tens(L, B, NL, S, dtype=torch.bfloat16) for _ in range(2))
+        lo = torch.full((B,), lo_v, dtype=torch.int32, device=dev)
+        rowmap = torch.from_numpy(rng.integers(0, KB, (B, NL)).astype(
+            np.int32)).to(dev)
+        kw = dict(n_head=H, kv_group=KB, layer=layer, rowmap=rowmap)
+        got = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+        sync()
+        want = SA.split_beam_attention_plain(
+            q.float(), kp.float(), vp.float(), kl.float(), vl.float(), lo,
+            hi_live, **kw)
+        e_max = float((got - want).abs().max())
+        log(f"K7 split_attn [{tag}] q {tuple(q.shape)} prompt "
+            f"{tuple(kp.shape)} live {tuple(kl.shape)} lo {lo_v} hi_live "
+            f"{hi_live}: max_abs_err {e_max:.3e} (tol 1e-4: the plain "
+            "version in f32 on the same bf16 inputs, sums in another order)")
+        if not e_max < 1e-4:
+            fail(f"K7 split attention [{tag}] disagrees with its plain "
+                 "version")
+        if tag == "tiny.en":
+            # the same keys gathered into one cache per beam: the library
+            # yardstick's input (built outside its timing)
+            rows = (torch.arange(B, device=dev)[:, None] // KB * KB
+                    + rowmap[:, :hi_live].long())
+            t = torch.arange(hi_live, device=dev)[None]
+            dh = S // H
+
+            def heads(p_, l_):
+                full = torch.cat([p_[layer, :, :lo_v].expand(B, lo_v, S),
+                                  l_[layer][rows, t]], dim=1)
+                return full.view(B, -1, H, dh).transpose(1, 2)
+            kf, vf = heads(kp, kl), heads(vp, vl)
+            qf = q.view(B, H, 1, dh)
+            nbytes = (2 * G * lo_v * S * 2 + 2 * B * hi_live * S * 2
+                      + B * S * 2 + B * S * 4 + B * hi_live * 4 + B * 4)
+            ops = 4 * B * (lo_v + hi_live) * S
+            recs["split_attn"] = dict(
+                err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
+                ms=time_ms(torch, lambda: SA.split_beam_attention(
+                    q, kp, vp, kl, vl, lo, hi_live, **kw)),
+                plain_ms=time_ms(torch, lambda:
+                                 SA.split_beam_attention_plain(
+                                     q, kp, vp, kl, vl, lo, hi_live, **kw)),
+                library_ms=time_ms(torch, lambda: sdpa(qf, kf, vf)))
+
+    # ---- K8 bounded reorder at phase 6's cache (large-v3 widths, 3 text
+    # layers, beam 8, capacity 512, 332 live slots) and at tiny.en's; the
+    # destination starts as NaN, and K3 over the reordered cache must stay
+    # finite and equal its plain version over index_select's result
+    for L, B, C, S, hi, tag in ((3, 8, 512, 1280, 332, "large-v3 beam 8"),
+                                (4, 5, 512, 384, 300, "tiny.en beam 5")):
+        k, v = (tens(L, B, C, S, dtype=torch.bfloat16) for _ in range(2))
+        src = torch.from_numpy(rng.integers(0, B, B).astype(np.int32)).to(dev)
+        out = (torch.full_like(k, float("nan")),
+               torch.full_like(v, float("nan")))
+        ko, vo = R.reorder_kv_live(k, v, src, hi, out=out)
+        sync()
+        kr, vr = R.reorder_kv_live_plain(k, v, src, hi)
+        exact = (bool(torch.equal(ko[:, :, :hi], kr[:, :, :hi]))
+                 and bool(torch.equal(vo[:, :, :hi], vr[:, :, :hi])))
+        qd = tens(B, S, dtype=torch.bfloat16)
+        lo = torch.full((B,), 3, dtype=torch.int32, device=dev)
+        kw = dict(split=hi - 40, n_head=S // 64, layer=L - 1)
+        a3 = D.decode_attention(qd, ko, vo, lo, hi, **kw)
+        sync()
+        b3 = D.decode_attention_plain(qd, kr, vr, lo, hi, **kw)
+        e3 = float((a3 - b3).abs().max())
+        finite = bool(torch.isfinite(a3).all())
+        log(f"K8 reorder_kv [{tag}] {tuple(k.shape)} hi {hi}: exact on "
+            f"c < hi {exact}; K3 over the NaN-tailed result finite {finite}, "
+            f"max_abs_err vs plain {e3:.3e} (tol: exact; finite; 1e-4)")
+        if not (exact and finite and e3 < 1e-4):
+            fail(f"K8 reorder [{tag}] disagrees with index_select")
+        if tag.startswith("large-v3"):
+            nbytes = 2 * 2 * L * B * hi * S * 2 + B * 4
+            recs["kv_reorder"] = dict(
+                err=0.0, bound=bound(nbytes, 0, PEAK_BF16),
+                ms=time_ms(torch, lambda: R.reorder_kv_live(
+                    k, v, src, hi, out=out)),
+                plain_ms=time_ms(torch, lambda: R.reorder_kv_live_plain(
+                    k, v, src, hi)),
+                library_ms=time_ms(torch, lambda: (
+                    torch.index_select(k, 1, src),
+                    torch.index_select(v, 1, src))))
+    return recs
+
+
 # --------------------------------------------------------------- phase 3 --
 def check_goldens(torch, gt):
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -330,7 +498,7 @@ def check_goldens(torch, gt):
 
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "tests", "golden", "nano_decode.json")) as f:
-        want_greedy = json.load(f)["greedy"]
+        want_window = json.load(f)
     with open(os.path.join(root, "tests", "golden",
                            "nano_clip_scenarios.json")) as f:
         want_clip = json.load(f)
@@ -350,24 +518,30 @@ def check_goldens(torch, gt):
     xkv = cross_kv(pipe.params, cfg, enc)
     wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
                                                  device="cuda"))
-    res = wd.decode(pipe.params, xkv, np.asarray([cfg.token_sot], np.int32),
-                    n_decoders=1, temperature=0.0, seek=0, seek_end=500,
-                    suppress_blank=True, no_timestamps=False,
-                    single_segment=False, max_tokens=0, test_mode=False)
-    n = min(res.n_steps, 48)
-    got = {"n_steps": res.n_steps,
-           "tokens": [[int(x) for x in r[:n]] for r in res.tokens],
-           "tid": [[int(x) for x in r[:n]] for r in res.tok_tid],
-           "result_len": [int(x) for x in res.result_len],
-           "seek_delta": [int(x) for x in res.seek_delta],
-           "completed": [bool(x) for x in res.completed],
-           "failed": [bool(x) for x in res.failed],
-           "sum_logprobs": [round(float(x), 3)
-                            for x in res.sum_logprobs_all]}
-    log(f"golden greedy: {got['tokens'][0]} (want "
-        f"{want_greedy['tokens'][0]})")
-    if got != want_greedy:
-        fail(f"nano greedy golden differs: {got} vs {want_greedy}")
+    for key, kw in (("greedy", dict(n_decoders=1)),
+                    ("beam5", dict(n_decoders=5, strategy="beam",
+                                   beam_size=5))):
+        res = wd.decode(pipe.params, xkv,
+                        np.asarray([cfg.token_sot], np.int32),
+                        temperature=0.0, seek=0, seek_end=500,
+                        suppress_blank=True, no_timestamps=False,
+                        single_segment=False, max_tokens=0, test_mode=False,
+                        **kw)
+        n = min(res.n_steps, 48)
+        got = {"n_steps": res.n_steps,
+               "tokens": [[int(x) for x in r[:n]] for r in res.tokens],
+               "tid": [[int(x) for x in r[:n]] for r in res.tok_tid],
+               "result_len": [int(x) for x in res.result_len],
+               "seek_delta": [int(x) for x in res.seek_delta],
+               "completed": [bool(x) for x in res.completed],
+               "failed": [bool(x) for x in res.failed],
+               "sum_logprobs": [round(float(x), 3)
+                                for x in res.sum_logprobs_all]}
+        want = want_window[key]
+        log(f"golden {key}: {got['tokens']} sums {got['sum_logprobs']} "
+            f"(want {want['tokens']} sums {want['sum_logprobs']})")
+        if got != want:
+            fail(f"nano {key} golden differs: {got} vs {want}")
 
     def scenario(c, audio, tparams, init):
         p = c.pipeline
@@ -416,8 +590,12 @@ def main() -> int:
     from godot_whisper_tpu_torch.ops import kernels
     from godot_whisper_tpu_torch.ops.attention import flash_attention_bh
     from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
-    from godot_whisper_tpu_torch.ops.filter_sample import fused_filter_sample
+    from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
+                                                           fused_filter_topk)
+    from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
     from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
+    from godot_whisper_tpu_torch.ops.split_attention import \
+        split_beam_attention
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -438,56 +616,100 @@ def main() -> int:
     # ---- phase 2: kernels vs plain versions
     rng = np.random.default_rng(0)
     recs = check_kernels(torch, gt, rng)
+    recs.update(check_beam_kernels(torch, rng))
 
     # ---- phase 3: goldens through the kernels
     check_goldens(torch, gt)
 
-    # ---- phase 4: the main path
-    audio = frozen_audio(34.0)
-    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
+    # every launch counter is set to 0 just before a path is driven and
+    # read just after it
     counters = (log_mel_raw, flash_attention_bh, decode_attention,
-                fused_filter_sample)
-    for fn in counters:
-        fn.launches = 0
-    decode_attention.group_launches.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    segments = ctx.full(gt.TranscribeParams(), audio)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    groups = dict(decode_attention.group_launches)
-    tm = ctx.timings
-    log(f"main path: tiny.en bf16, 34.0 s audio, {len(segments)} segments, "
-        f"wall {wall:.3f} s, {34.0 / wall:.2f} audio-s/s, "
-        f"{tm.n_decode} decode steps, {tm.n_encode} windows, "
-        f"{tm.n_fail_p} windows not emitted")
-    log(f"main path launches: {launches}, decode_attention by kv_group "
-        f"{groups}")
-    if min(launches.values()) == 0 or not (groups.get(1) and groups.get(5)):
+                fused_filter_sample, fused_filter_topk, split_beam_attention,
+                reorder_kv_live)
+
+    def drive(what, c, tparams, audio_s):
+        for fn in counters:
+            fn.launches = 0
+        decode_attention.group_launches.clear()
+        c.timings.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segs = c.full(tparams, frozen_audio(audio_s))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {fn.__name__: fn.launches for fn in counters}
+        grp = dict(decode_attention.group_launches)
+        tm = c.timings
+        log(f"{what}: {len(segs)} segments, wall {wall:.3f} s, "
+            f"{audio_s / wall:.2f} audio-s/s, {tm.n_decode} decode steps, "
+            f"{tm.n_encode} windows, {tm.n_fail_p} windows not emitted")
+        log(f"{what} launches: {n}, decode_attention by kv_group {grp}")
+        for s_ in segs:
+            if not (0 <= s_.t0 <= s_.t1 and s_.tokens and all(
+                    0 <= t.id < c.config.n_vocab and np.isfinite(t.plog)
+                    for t in s_.tokens)):
+                fail(f"malformed segment {s_}")
+        return n, grp
+
+    # ---- phase 4: the main path
+    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
+    launches, groups = drive("main path: tiny.en bf16, 34.0 s audio", ctx,
+                             gt.TranscribeParams(), 34.0)
+    if not all(launches[fn.__name__] for fn in counters[:4]) or not (
+            groups.get(1) and groups.get(5)):
         fail("a kernel of the main path never launched")
-    for s in segments:
-        if not (0 <= s.t0 <= s.t1 and s.tokens and all(
-                0 <= t.id < ctx.config.n_vocab and np.isfinite(t.plog)
-                for t in s.tokens)):
-            fail(f"malformed segment {s}")
+
+    # ---- phase 5: the beam path (tiny.en, full width)
+    beam = gt.SamplingStrategy.BEAM_SEARCH
+    n5, grp5 = drive("beam path: tiny.en bf16 beam 5, 34.0 s audio", ctx,
+                     gt.TranscribeParams(strategy=beam), 34.0)
+    if not (n5["fused_filter_topk"] and n5["split_beam_attention"]
+            and grp5.get(5) and n5["log_mel_raw"]
+            and n5["flash_attention_bh"]):
+        fail("a kernel of the beam path never launched")
+
+    # ---- phase 6: the wide beam route (K8): large-v3 widths, depth cut
+    from godot_whisper_tpu_torch.decode.params import beam_params
+    wide = gt.get_config("large-v3").replace(n_audio_layer=2, n_text_layer=3)
+    wctx = gt.WhisperContext.from_params(
+        wide, gt.init_params(wide, seed=0, device="cuda"), device="cuda")
+    n6, grp6 = drive("wide beam route: large-v3 widths (S 1280, 20 heads, "
+                     "128 mels, V 51866) cut to 2 audio + 3 text layers, "
+                     "bf16, beam 8, 10.0 s audio", wctx,
+                     beam_params(beam_size=8, best_of=8,
+                                 temperature_inc=0.0), 10.0)
+    if not (n6["reorder_kv_live"] and n6["fused_filter_topk"]
+            and grp6.get(8)) or n6["split_beam_attention"]:
+        fail("the wide beam route did not go through K8 (or went through "
+             "K7)")
 
     tpu = {"mel": "mel_kernel.py:77", "enc_attn": "attention.py:105",
            "decode_attn_k3": "decode_attention.py:126",
            "decode_attn_k4": "decode_attention.py:221",
-           "filter_sample": "filter_sample.py:113"}
+           "filter_sample": "filter_sample.py:113",
+           "filter_topk": "filter_sample.py:178",
+           "split_attn": "split_attention.py:59",
+           "kv_reorder": "kv_reorder.py:68"}
     names = {"mel": ("log_mel_raw", "mel.cu"),
              "enc_attn": ("flash_attention_bh", "enc_attn.cu"),
              "decode_attn_k3": ("decode_attention[kv_group=1]",
                                 "decode_attn.cu"),
              "decode_attn_k4": ("decode_attention[kv_group=5]",
                                 "decode_attn.cu"),
-             "filter_sample": ("fused_filter_sample", "filter_sample.cu")}
+             "filter_sample": ("fused_filter_sample", "filter_sample.cu"),
+             "filter_topk": ("fused_filter_topk", "filter_sample.cu"),
+             "split_attn": ("split_beam_attention", "split_attn.cu"),
+             "kv_reorder": ("reorder_kv_live", "kv_reorder.cu")}
+    # launches: K1-K5 from the greedy main path (phase 4), K6 and K7 from
+    # the beam path (phase 5), K8 from the wide beam route (phase 6)
     n_launch = {"mel": launches["log_mel_raw"],
                 "enc_attn": launches["flash_attention_bh"],
                 "decode_attn_k3": groups.get(1, 0),
                 "decode_attn_k4": groups.get(5, 0),
-                "filter_sample": launches["fused_filter_sample"]}
+                "filter_sample": launches["fused_filter_sample"],
+                "filter_topk": n5["fused_filter_topk"],
+                "split_attn": n5["split_beam_attention"],
+                "kv_reorder": n6["reorder_kv_live"]}
     out = []
     for key, r in recs.items():
         b_ms, b_by = r["bound"]

@@ -1,7 +1,7 @@
 """Whole-clip decode: the seek loop, temperature ladder and token loop.
 
 Port of the JAX package's ``decode/clip.py`` (``ClipDecoder._build``) as
-eager Python with the same semantics, greedy / best_of only:
+eager Python with the same semantics:
 
     while any stream can progress:            # seek loop (whisper.cpp:5150)
         encode current windows (all streams, batched)
@@ -12,8 +12,9 @@ eager Python with the same semantics, greedy / best_of only:
         record window outputs, update prompt_past, advance seeks
 
 Every stream runs ``n_dec`` decoder rows (5 by default: best_of samplers on
-the t > 0 rungs, identical argmax rows on the t = 0 rung); the rows of a
-stream share ONE cross-KV row through ``kv_group = n_dec``.  Streams
+the t > 0 rungs; on the t = 0 rung identical argmax rows, or with
+``strategy="beam"`` one group of n_dec beams); the rows of a stream share
+ONE cross-KV row through ``kv_group = n_dec``.  Streams
 advance in lockstep waves, each by its own seek_delta, settling at its own
 ladder temperature.  The JAX package's donated state machine and
 ``while_loop``s become host loops over numpy state; window outputs are kept
@@ -32,7 +33,7 @@ from ..models.config import WhisperConfig
 from ..models.model import cross_kv, encoder_forward
 from .filters import FilterContext
 from .window import (WindowResult, WindowStatics, prompt_pass_grouped,
-                     run_decode_loop)
+                     run_decode_loop, use_split_cache)
 
 SEEK_DELTA_FULL = 3000
 
@@ -56,7 +57,8 @@ class ClipStatics:
     max_tokens: int
     test_mode: bool
     seed: int
-    n_dec: int = 1             # decoder rows per stream (best_of)
+    n_dec: int = 1             # decoder rows per stream (beam/best_of)
+    strategy: str = "greedy"   # "greedy" | "beam" (beam on the t=0 rung)
 
 
 class ClipOutputs(NamedTuple):
@@ -92,6 +94,24 @@ class ClipOutputs(NamedTuple):
             n_steps=int(self.rl[b, k]))
 
 
+def mel_windows(mel: torch.Tensor, seek: np.ndarray, n_len: np.ndarray,
+                n_ctx: int) -> torch.Tensor:
+    """Each stream's encoder input (B, 2 * n_ctx, n_mels) from its mel
+    (B, n_mels, F) at its seek.  A window starting past the buffer is
+    clamped into it, as lax.dynamic_slice does; frames >= n_len are zeroed
+    (whisper.cpp:1695)."""
+    B, _, F = mel.shape
+    dev = mel.device
+    start = np.clip(seek, 0, max(F - 2 * n_ctx, 0))
+    idx = torch.as_tensor(np.asarray(seek)[:, None]
+                          + np.arange(2 * n_ctx)[None], device=dev)
+    wins = torch.stack([mel[b, :, int(start[b]):int(start[b]) + 2 * n_ctx]
+                        for b in range(B)])
+    keep = idx < torch.as_tensor(np.asarray(n_len)[:, None], device=dev)
+    return torch.where(keep[:, None, :], wins,
+                       torch.zeros((), device=dev)).transpose(1, 2)
+
+
 def _entropy_last32(tokens: np.ndarray, rl: np.ndarray,
                     n_max: int) -> np.ndarray:
     """Token-histogram entropy of the final 32 tokens per row
@@ -124,14 +144,21 @@ class ClipDecoder:
             p = statics.n_init
         self.prompt_pad = -(-max(p, 8) // 8) * 8
 
-    def _wst(self, argmax: bool) -> WindowStatics:
+    def _wst(self, t_idx: int) -> WindowStatics:
+        """Rung t_idx: beam search on rung 0 when the strategy asks for it,
+        at t = 0 and with more than one row; argmax rows at t = 0
+        otherwise; best_of samplers above (whisper.cpp:5035-5067)."""
         s = self.statics
+        argmax = s.temps[t_idx] < 1e-6
+        beam = (t_idx == 0 and s.strategy == "beam" and s.n_dec > 1
+                and argmax)
         return WindowStatics(
             config=self.config, batch=s.batch * s.n_dec, n_max=self.n_max,
-            prompt_pad=self.prompt_pad, greedy_argmax=argmax,
+            prompt_pad=self.prompt_pad, greedy_argmax=argmax and not beam,
             suppress_blank=s.suppress_blank, no_timestamps=s.no_timestamps,
             single_segment=s.single_segment, max_tokens=s.max_tokens,
-            test_mode=s.test_mode, kv_group=s.n_dec)
+            test_mode=s.test_mode, kv_group=s.n_dec,
+            strategy="beam" if beam else "greedy", beam_size=s.n_dec)
 
     def _build_prompt(self, past_buf, past_cnt, use_past_t: bool):
         """[prev] + past tail + task prefix per stream (whisper.cpp:5237)."""
@@ -165,7 +192,6 @@ class ClipDecoder:
         n_ctx = s.audio_ctx or config.n_audio_ctx
         n_temps = len(s.temps)
         dev = mel.device
-        F = mel.shape[2]
         rows = np.arange(B)
         n_len = np.asarray(n_lens, np.int32)
         seek = np.asarray(seeks, np.int32).copy()
@@ -188,18 +214,9 @@ class ClipDecoder:
             if not active.any():
                 break
 
-            # ---- batched encode of every stream's current window (a
-            # window starting past the buffer is clamped into it, as
-            # lax.dynamic_slice does; frames >= n_len are zeroed)
-            start = np.clip(seek, 0, max(F - 2 * n_ctx, 0))
-            idx = torch.as_tensor(seek[:, None] + np.arange(2 * n_ctx)[None],
-                                  device=dev)
-            wins = torch.stack([mel[b, :, int(start[b]):int(start[b])
-                                    + 2 * n_ctx] for b in range(B)])
-            keep = idx < torch.as_tensor(n_len[:, None], device=dev)
-            wins = torch.where(keep[:, None, :], wins,
-                               torch.zeros((), device=dev)).transpose(1, 2)
-            enc = encoder_forward(params, config, wins,
+            # ---- batched encode of every stream's current window
+            enc = encoder_forward(params, config,
+                                  mel_windows(mel, seek, n_len, n_ctx),
                                   audio_ctx=s.audio_ctx or None)
             xkv = cross_kv(params, config, enc)
 
@@ -227,13 +244,13 @@ class ClipDecoder:
                 prompt, n_prompt, n_take, used_past = self._build_prompt(
                     past_buf, cnt, s.temps[t_idx] < 0.5)
                 prompt_t = torch.from_numpy(prompt).to(dev)
-                last, kv = prompt_pass_grouped(params, config, prompt_t,
-                                               n_prompt, xkv, ND, n_max=N_MAX)
-                # rung 0 is argmax when its temperature is 0; sampling
-                # rungs seed each attempt with seed + rung index
+                wst = self._wst(t_idx)
+                last, kv = prompt_pass_grouped(
+                    params, config, prompt_t, n_prompt, xkv, ND, n_max=N_MAX,
+                    repeat_kv=not use_split_cache(wst))
+                # sampling rungs seed each attempt with seed + rung index
                 ls = run_decode_loop(
-                    params, config, self.fctx,
-                    self._wst(argmax=s.temps[t_idx] < 1e-6), xkv, kv, last,
+                    params, config, self.fctx, wst, xkv, kv, last,
                     rep(n_prompt), temp, rep(seek), rep(seek_end),
                     s.seed + t_idx)
 

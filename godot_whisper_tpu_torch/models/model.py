@@ -9,8 +9,9 @@ the same public layouts):
 - cross-KV: K/V of every decoder layer projected once per window, kept
   merged-head ``(L, B, T_pad, S)`` with ``t_valid``;
 - decoder: token + position embedding, self-attention over a merged-head
-  KV cache ``(L, B, C, S)``, cross-attention, logits against the token
-  embedding.
+  KV cache ``(L, B, C, S)`` (in beam search, over a prompt cache per
+  group plus a live cache per beam), cross-attention, logits against the
+  token embedding.
 
 bf16 rounding points follow the JAX package: every projection accumulates
 in f32, adds its f32 bias and rounds once to the compute dtype; LayerNorm
@@ -30,6 +31,7 @@ import torch.nn.functional as Fn
 
 from ..ops.attention import flash_attention_bh
 from ..ops.decode_attention import decode_attention
+from ..ops.split_attention import split_beam_attention
 from .config import WhisperConfig
 
 Params = Dict[str, Any]
@@ -290,7 +292,9 @@ def decoder_dense(params: Params, config: WhisperConfig,
 def decoder_step(params: Params, config: WhisperConfig,
                  token: torch.Tensor, pos: torch.Tensor, kv: KVCache,
                  xkv: CrossKV, lo: torch.Tensor, slot: int, split: int,
-                 kv_group: int = 1) -> Tuple[torch.Tensor, KVCache]:
+                 kv_group: int = 1, kv_prompt: Optional[KVCache] = None,
+                 rowmap: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, KVCache]:
     """The autoregressive hot step: one token per row.
 
     ``pos`` (= n_prompt + i) drives the positional embedding; the cache
@@ -298,8 +302,18 @@ def decoder_step(params: Params, config: WhisperConfig,
     lengths are mask parameters (``lo``), never per-row write offsets.
     Self- and cross-attention run the decode-attention kernel over the
     full stacked caches with the layer as an index; ``kv_group`` rows share
-    one cross-KV row.  Writes the new K/V into ``kv`` in place and returns
-    (logits (B, V) f32, kv)."""
+    one cross-KV row.
+
+    Split-cache beam mode (``kv_prompt`` given): the prompt K/V is stored
+    once per beam group, ``kv_prompt`` (L, G, CP, S), and ``kv`` is the
+    per-beam LIVE cache (L, B, NL, S); ``slot`` is the live slot (= i, no
+    prompt offset, ``split`` unused), the new K/V goes to the beam's own
+    row, and self-attention runs the split kernel, which reads beam b's
+    live slot t from row ``rowmap[b, t]`` of its group (``rowmap[:, slot]``
+    must be each beam's own row).
+
+    Writes the new K/V into ``kv`` in place and returns (logits (B, V) f32,
+    kv)."""
     dec = params["decoder"]
     n_head = config.n_text_head
     cdtype = param_compute_dtype(params)
@@ -307,6 +321,7 @@ def decoder_step(params: Params, config: WhisperConfig,
     t_pad = xkv.k.shape[2]
     cross_lo = torch.full((B,), xkv.t_valid, dtype=torch.int32,
                           device=token.device)
+    beam_group = B // kv_prompt.k.shape[1] if kv_prompt is not None else 1
 
     x = _embed(dec, token, pos, cdtype)                        # (B, S)
     for li in range(config.n_text_layer):
@@ -316,8 +331,14 @@ def decoder_step(params: Params, config: WhisperConfig,
         q = _proj(h, attn["wq"], attn["bq"])
         kv.k[li, :, slot] = _proj(h, attn["wk"]).to(kv.k.dtype)
         kv.v[li, :, slot] = _proj(h, attn["wv"], attn["bv"]).to(kv.v.dtype)
-        o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
-                             n_head=n_head, layer=li)
+        if kv_prompt is not None:
+            o = split_beam_attention(q, kv_prompt.k, kv_prompt.v, kv.k, kv.v,
+                                     lo, slot + 1, n_head=n_head,
+                                     kv_group=beam_group, layer=li,
+                                     rowmap=rowmap)
+        else:
+            o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
+                                 n_head=n_head, layer=li)
         x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]

@@ -1,11 +1,16 @@
-"""K5: fused logit filter + sampler (csrc/filter_sample.cu) and its plain
-version.
+"""K5: fused logit filter + sampler, and K6: fused logit filter + top-K
+beam expansion (both csrc/filter_sample.cu), with their plain versions.
 
-Counterpart of the JAX package's ``ops/filter_sample.py`` entry
-``fused_filter_sample`` (TPU kernel ``_kernel`` with ``_filter_lp``):
-temperature, the suppression rules, masked log-softmax with the -1e30
-sentinel, the timestamp-mass rule, then argmax over probabilities or
-Gumbel-max sampling per row, and the timestamp statistics.
+Counterparts of the JAX package's ``ops/filter_sample.py`` entries:
+
+- ``fused_filter_sample`` (TPU kernel ``_kernel`` with ``_filter_lp``):
+  temperature, the suppression rules, masked log-softmax with the -1e30
+  sentinel, the timestamp-mass rule, then argmax over probabilities or
+  Gumbel-max sampling per row, and the timestamp statistics;
+- ``fused_filter_topk`` (TPU kernel ``_topk_kernel``): the same filter
+  stage, then the K largest filtered log-probs per row (lowest index first
+  on ties, the ``lax.top_k`` order), the probability at each, and the
+  pre-merge timestamp statistics -- the beam loop's whole pre-merge stage.
 
 Per-row decode state rides in one ``(B, 7)`` int32 tensor, as in the JAX
 kernel: ``[is_initial, last, penult, n_tokens, has_ts, seek_delta,
@@ -19,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import kernels as K
+from . import kernels
 
 _NEG = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -30,6 +35,15 @@ class SampleOut(NamedTuple):
     p: torch.Tensor       # (B,) f32
     plog: torch.Tensor    # (B,) f32
     pt: torch.Tensor      # (B,) f32
+    ptsum: torch.Tensor   # (B,) f32
+    tid: torch.Tensor     # (B,) int32
+
+
+class TopKOut(NamedTuple):
+    plog: torch.Tensor    # (B, K) f32 top-K filtered log-probs, descending
+    ids: torch.Tensor     # (B, K) int32
+    p: torch.Tensor       # (B, K) f32 probabilities at those ids
+    pt: torch.Tensor      # (B,) f32 pre-merge timestamp statistics
     ptsum: torch.Tensor   # (B,) f32
     tid: torch.Tensor     # (B,) int32
 
@@ -57,10 +71,15 @@ def gumbel_hash_noise(seed: int, b: int, v: int, device) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=1e-12)))
 
 
-def fused_filter_sample_plain(logits, suppress, state, *, temperature: float,
-                              seed: int, eot: int, beg: int, space_id: int,
-                              max_initial_tid: int, suppress_blank: bool,
-                              no_timestamps: bool) -> SampleOut:
+def _filtered_logprobs(logits, suppress, state, *, temperature: float,
+                       eot: int, beg: int, space_id: int,
+                       max_initial_tid: int, suppress_blank: bool,
+                       no_timestamps: bool):
+    """The filter stage that K5 and K6 share (the TPU's ``_filter_lp``):
+    temperature, the suppression rules, the masked log-softmax and the
+    timestamp-mass rule.  Returns (lp, probs, live, ts): (B, V) log-probs
+    with -1e30 at every filtered id, their probabilities (exact 0 there),
+    the unfiltered mask and the timestamp-id mask."""
     B, V = logits.shape
     dev = logits.device
     neg = torch.tensor(_NEG, dtype=torch.float32, device=dev)
@@ -69,7 +88,6 @@ def fused_filter_sample_plain(logits, suppress, state, *, temperature: float,
     is_initial = st[:, 0:1] != 0
     last, penult, n_tokens = st[:, 1:2], st[:, 2:3], st[:, 3:4]
     has_ts, seek_delta = st[:, 4:5] != 0, st[:, 5:6]
-    flag = st[:, 6] != 0
 
     l = logits.float()
     temp = torch.tensor(temperature, dtype=torch.float32)
@@ -104,23 +122,43 @@ def fused_filter_sample_plain(logits, suppress, state, *, temperature: float,
     lp = torch.where((ts_lp > text_m) & ~ts, neg, lp)
     live = lp > _NEG * 0.5
     probs = torch.where(live, torch.exp(lp), zero)
+    return lp, probs, live, ts
 
+
+def _timestamp_stats(probs, ts):
+    """(pt, ptsum, tid) of the filtered distribution: max / sum of the
+    timestamp probabilities and the first timestamp id with the max."""
+    ts_probs = torch.where(ts, probs, torch.zeros((), device=probs.device))
+    sum_ts = ts_probs.sum(dim=1)
+    pt = ts_probs.max(dim=1).values / (sum_ts + 1e-10)
+    tid = torch.argmax(torch.where(ts, probs, -torch.ones_like(probs)), dim=1)
+    return pt, sum_ts, tid
+
+
+def fused_filter_sample_plain(logits, suppress, state, *, temperature: float,
+                              seed: int, eot: int, beg: int, space_id: int,
+                              max_initial_tid: int, suppress_blank: bool,
+                              no_timestamps: bool) -> SampleOut:
+    B, V = logits.shape
+    dev = logits.device
+    lp, probs, live, ts = _filtered_logprobs(
+        logits, suppress, state, temperature=temperature, eot=eot, beg=beg,
+        space_id=space_id, max_initial_tid=max_initial_tid,
+        suppress_blank=suppress_blank, no_timestamps=no_timestamps)
+    flag = state[:, 6] != 0
     if bool(flag.all()):
         choice = probs
     else:
         g = gumbel_hash_noise(seed, B, V, dev)
         choice = torch.where(flag[:, None], probs,
-                             torch.where(live, lp + g, neg))
+                             torch.where(live, lp + g,
+                                         torch.full_like(lp, _NEG)))
     tok = torch.argmax(choice, dim=1)
     rows = torch.arange(B, device=dev)
     p_sel = probs[rows, tok]
     lp_sel = lp[rows, tok]
 
-    ts_probs = torch.where(ts, probs, zero)
-    sum_ts = ts_probs.sum(dim=1)
-    max_ts = ts_probs.max(dim=1).values
-    tid = torch.argmax(torch.where(ts, probs, -torch.ones_like(probs)), dim=1)
-    pt = max_ts / (sum_ts + 1e-10)
+    pt, sum_ts, tid = _timestamp_stats(probs, ts)
     is_ts_tok = tok >= beg
     tid = torch.where(is_ts_tok, tok, tid)
     pt = torch.where(is_ts_tok, p_sel, pt)
@@ -142,7 +180,7 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
               suppress_blank=suppress_blank, no_timestamps=no_timestamps)
     if logits.device.type == "cpu":
         return fused_filter_sample_plain(logits, suppress, state, **kw)
-    K.require_cuda("fused_filter_sample", logits, suppress, state)
+    kernels.require_cuda("fused_filter_sample", logits, suppress, state)
     B, V = logits.shape
     if (logits.dtype != torch.float32
             or suppress.dtype not in (torch.bool, torch.uint8)
@@ -155,16 +193,86 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
     tid = torch.empty(B, dtype=torch.int32, device=dev)
     p, plog, pt, ptsum = (torch.empty(B, dtype=torch.float32, device=dev)
                           for _ in range(4))
-    fn = K.entry("filter_sample", "gwt_filter_sample",
-                 (K.P,) * 9 + (K.I,) * 8 + (K.F, K.U, K.P))
-    K.launch(fn, "gwt_filter_sample", logits.data_ptr(), suppress.data_ptr(),
+    k = kernels
+    fn = k.entry("filter_sample", "gwt_filter_sample",
+                 (k.P,) * 9 + (k.I,) * 8 + (k.F, k.U, k.P))
+    k.launch(fn, "gwt_filter_sample", logits.data_ptr(), suppress.data_ptr(),
              state.data_ptr(), tok.data_ptr(), p.data_ptr(), plog.data_ptr(),
              pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, eot, beg,
              space_id, max_initial_tid, int(suppress_blank),
              int(no_timestamps), float(temperature), seed & _MASK32,
-             K.stream_ptr(dev))
+             k.stream_ptr(dev))
     fused_filter_sample.launches += 1
     return SampleOut(token=tok, p=p, plog=plog, pt=pt, ptsum=ptsum, tid=tid)
 
 
 fused_filter_sample.launches = 0
+
+
+def fused_filter_topk_plain(logits, suppress, state, *, K: int,
+                            temperature: float, eot: int, beg: int,
+                            space_id: int, max_initial_tid: int,
+                            suppress_blank: bool,
+                            no_timestamps: bool) -> TopKOut:
+    B = logits.shape[0]
+    lp, probs, _, ts = _filtered_logprobs(
+        logits, suppress, state, temperature=temperature, eot=eot, beg=beg,
+        space_id=space_id, max_initial_tid=max_initial_tid,
+        suppress_blank=suppress_blank, no_timestamps=no_timestamps)
+    pt, ptsum, tid = _timestamp_stats(probs, ts)
+    rows = torch.arange(B, device=lp.device)
+    work = lp.clone()
+    ids = []
+    for _ in range(K):   # argmax + mask passes: lowest index wins ties
+        j = torch.argmax(work, dim=1)
+        ids.append(j)
+        work[rows, j] = _NEG
+    ids = torch.stack(ids, dim=1)
+    plog = torch.gather(lp, 1, ids)
+    p = torch.gather(probs, 1, ids)
+    return TopKOut(plog=plog, ids=ids.to(torch.int32), p=p, pt=pt,
+                   ptsum=ptsum, tid=tid.to(torch.int32))
+
+
+def fused_filter_topk(logits: torch.Tensor, suppress: torch.Tensor,
+                      state: torch.Tensor, *, K: int, temperature: float,
+                      eot: int, beg: int, space_id: int, max_initial_tid: int,
+                      suppress_blank: bool, no_timestamps: bool) -> TopKOut:
+    """Kernel wrapper.  logits (B, V) f32 raw; suppress (V,) bool; state
+    (B, 7) int32 as for ``fused_filter_sample`` (column 6 is not read).
+    CUDA tensors launch csrc/filter_sample.cu's top-K kernel, CPU tensors
+    take the plain version."""
+    kw = dict(K=K, temperature=temperature, eot=eot, beg=beg,
+              space_id=space_id, max_initial_tid=max_initial_tid,
+              suppress_blank=suppress_blank, no_timestamps=no_timestamps)
+    if logits.device.type == "cpu":
+        return fused_filter_topk_plain(logits, suppress, state, **kw)
+    kernels.require_cuda("fused_filter_topk", logits, suppress, state)
+    B, V = logits.shape
+    if (logits.dtype != torch.float32
+            or suppress.dtype not in (torch.bool, torch.uint8)
+            or tuple(suppress.shape) != (V,) or state.dtype != torch.int32
+            or tuple(state.shape) != (B, 7) or V > 56000
+            or not 1 <= K <= V):
+        raise ValueError("fused_filter_topk: logits (B, V<=56000) f32, "
+                         "suppress (V,) bool, state (B, 7) int32, 1 <= K")
+    dev = logits.device
+    plog = torch.empty((B, K), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, K), dtype=torch.int32, device=dev)
+    p = torch.empty((B, K), dtype=torch.float32, device=dev)
+    pt, ptsum = (torch.empty(B, dtype=torch.float32, device=dev)
+                 for _ in range(2))
+    tid = torch.empty(B, dtype=torch.int32, device=dev)
+    k = kernels
+    fn = k.entry("filter_sample", "gwt_filter_topk",
+                 (k.P,) * 9 + (k.I,) * 9 + (k.F, k.P))
+    k.launch(fn, "gwt_filter_topk", logits.data_ptr(), suppress.data_ptr(),
+             state.data_ptr(), plog.data_ptr(), ids.data_ptr(), p.data_ptr(),
+             pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, K, eot,
+             beg, space_id, max_initial_tid, int(suppress_blank),
+             int(no_timestamps), float(temperature), k.stream_ptr(dev))
+    fused_filter_topk.launches += 1
+    return TopKOut(plog=plog, ids=ids, p=p, pt=pt, ptsum=ptsum, tid=tid)
+
+
+fused_filter_topk.launches = 0

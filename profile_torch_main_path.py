@@ -2,9 +2,11 @@
 """Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
 
     python3 profile_torch_main_path.py [--model tiny.en] [--seconds 34]
+                                       [--beam K]
 
 Drives ``WhisperContext.synthetic(model, seed=0)`` (bf16) ``.full(
-TranscribeParams(), audio)`` on the deterministic test clip:
+TranscribeParams(), audio)`` on the deterministic test clip (with
+``--beam K``: ``TranscribeParams(strategy=BEAM_SEARCH, beam_size=K)``):
 
 1. one warm-up run (kernel build and load, cuBLAS and allocator warm-up);
 2. three timed runs (host clock around work that ends in a synchronize):
@@ -15,9 +17,9 @@ TranscribeParams(), audio)`` on the deterministic test clip:
    kernels, so the device busy share is that device time over the median
    wall of the unprofiled runs (the rest is the host driving the loop);
 4. stage times with CUDA synchronizes around each stage: mel, one window's
-   encode (encoder + cross-KV), and one window's greedy decode
-   (``WindowDecoder.decode``: prompt pass + token loop) at the main path's
-   rows per stream, per decode step.
+   encode (encoder + cross-KV), and one window's rung-0 decode
+   (``WindowDecoder.decode``: prompt pass + token loop; greedy, or beam K
+   with ``--beam``) at the main path's rows per stream, per decode step.
 
 Prints a human-readable breakdown and, as its last line, one JSON object.
 Needs a CUDA device; exits non-zero without one.
@@ -54,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="tiny.en")
     ap.add_argument("--seconds", type=float, default=34.0)
+    ap.add_argument("--beam", type=int, default=0,
+                    help="beam size (0: the default greedy ladder)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -68,7 +72,9 @@ def main() -> int:
     sync = torch.cuda.synchronize
     audio = frozen_audio(args.seconds)
     ctx = gt.WhisperContext.synthetic(args.model, seed=0)
-    tp = gt.TranscribeParams()
+    tp = (gt.TranscribeParams(strategy=gt.SamplingStrategy.BEAM_SEARCH,
+                              beam_size=args.beam) if args.beam
+          else gt.TranscribeParams())
     ctx.full(tp, audio)                                   # warm-up
 
     walls, steps = [], 0
@@ -118,20 +124,25 @@ def main() -> int:
     enc_ms, xkv = timed(lambda: cross_kv(params, cfg, encoder_forward(
         params, cfg, win)))
     nd = max(tp.n_decoders_at(t) for t in tp.temperatures())
+    mode = (dict(strategy="beam", beam_size=args.beam, n_decoders=args.beam)
+            if args.beam else dict(n_decoders=nd))
+    nd = mode["n_decoders"]
     wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
                                                  device="cuda"))
     window_ms, res = timed(lambda: wd.decode(
-        params, xkv, np.asarray([cfg.token_sot], np.int32), n_decoders=nd,
+        params, xkv, np.asarray([cfg.token_sot], np.int32),
         temperature=0.0, seek=0, seek_end=pipe._n_len_org,
         suppress_blank=tp.suppress_blank, no_timestamps=False,
-        single_segment=False, max_tokens=0, test_mode=False), reps=3)
+        single_segment=False, max_tokens=0, test_mode=False, **mode),
+        reps=3)
     loop_ms_per_step = window_ms / max(res.n_steps, 1)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    print(f"main path {args.model} bf16, {args.seconds} s audio: wall "
+    what = f"beam {args.beam}" if args.beam else "greedy"
+    print(f"main path {args.model} bf16 {what}, {args.seconds} s audio: wall "
           f"{[round(w, 4) for w in walls]} s (median {wall:.4f}), "
           f"{args.seconds / wall:.2f} audio-s/s, {steps} decode steps, "
           f"{wall / max(steps, 1) * 1e3:.3f} ms wall per step")
@@ -145,11 +156,12 @@ def main() -> int:
     for us, n, key in rows[:15]:
         print(f"  {us:12.1f} {n:7d}  {key[:100]}")
     print(f"stages (synchronized): mel {mel_ms:.3f} ms, encode window "
-          f"{enc_ms:.3f} ms, greedy window decode ({nd} rows) "
+          f"{enc_ms:.3f} ms, {what} window decode ({nd} rows) "
           f"{window_ms:.3f} ms = {loop_ms_per_step:.3f} ms per step over "
           f"{res.n_steps} steps")
     print(json.dumps({
-        "card": smi, "model": args.model, "audio_s": args.seconds,
+        "card": smi, "model": args.model, "beam": args.beam,
+        "audio_s": args.seconds,
         "wall_s": walls, "steps": steps,
         "audio_s_per_s": args.seconds / wall,
         "profiled_wall_s": prof_wall, "device_s": dev_total_us / 1e6,

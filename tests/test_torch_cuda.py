@@ -177,3 +177,145 @@ def test_greedy_golden_through_kernels(cuda):
     assert res.tokens[0, :n].tolist() == want["tokens"][0]
     assert res.tok_tid[0, :n].tolist() == want["tid"][0]
     assert res.seek_delta.tolist() == want["seek_delta"]
+
+
+@pytest.mark.parametrize("name", ["tiny.en", "large-v3"])
+def test_filter_topk_kernel_matches_plain(cuda, name):
+    """K6: ids and tid exact, plog / p / pt / ptsum within 1e-5; a forced
+    tie comes out lowest id first; bit-identical rows give bit-identical
+    outputs."""
+    cfg = get_config(name)
+    V, beg = cfg.n_vocab, cfg.token_beg
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(10, V, generator=g) * 3
+    logits[:, [11, 700, 9000]] = 25.0
+    logits[8] = logits[3]   # rows 3 and 8 also share their state
+    logits = logits.to(cuda)
+    sup = torch.zeros(V, dtype=torch.bool, device=cuda)
+    sup[[cfg.token_not, cfg.token_sot, cfg.token_prev]] = True
+    state = torch.tensor([[1, -1, -1, 0, 0, 3000, 0],
+                          [0, beg + 5, 77, 5, 1, 10, 0],
+                          [0, 123, beg + 3, 7, 1, 6, 0],
+                          [0, 321, 322, 9, 0, 3000, 0],
+                          [1, -1, -1, 0, 0, 3000, 0]] * 2,
+                         dtype=torch.int32, device=cuda)
+    kw = dict(K=5, temperature=0.0, eot=cfg.token_eot, beg=beg, space_id=220,
+              max_initial_tid=50, suppress_blank=True, no_timestamps=False)
+    before = FS.fused_filter_topk.launches
+    got = FS.fused_filter_topk(logits, sup, state, **kw)
+    torch.cuda.synchronize()
+    assert FS.fused_filter_topk.launches == before + 1
+    want = FS.fused_filter_topk_plain(logits, sup, state, **kw)
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.tid, want.tid)
+    for name_ in ("plog", "p", "pt", "ptsum"):
+        assert float((getattr(got, name_) - getattr(want, name_)).abs()
+                     .max()) < 1e-5
+    assert got.ids[3, :3].tolist() == [11, 700, 9000]
+    for t in got:
+        assert torch.equal(t[3], t[8])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,g,kgrp,hi_live", [
+    (384, 6, 1, 5, 1), (384, 6, 2, 5, 130), (1280, 20, 1, 5, 256),
+    (128, 4, 3, 3, 64),
+])
+def test_split_attention_kernel_matches_plain(cuda, dtype, s, h, g, kgrp,
+                                              hi_live):
+    """K7 against its plain version in f32 on the same inputs, a permuted
+    row map and ragged lo: within 1e-4 (f32 math in another order)."""
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+    gen = torch.Generator().manual_seed(4)
+    dt = getattr(torch, dtype)
+    b, cp, nl = g * kgrp, 256, 256
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(cuda, dt)
+    q, kp, vp = rnd(b, s), rnd(2, g, cp, s), rnd(2, g, cp, s)
+    kl, vl = rnd(2, b, nl, s), rnd(2, b, nl, s)
+    lo = torch.randint(1, 232, (g,), generator=gen).repeat_interleave(kgrp)
+    lo = lo.to(cuda, torch.int32)
+    rowmap = torch.randint(0, kgrp, (b, nl), generator=gen).to(
+        cuda, torch.int32)
+    kw = dict(n_head=h, kv_group=kgrp, layer=1, rowmap=rowmap)
+    before = SA.split_beam_attention.launches
+    got = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+    torch.cuda.synchronize()
+    assert SA.split_beam_attention.launches == before + 1
+    want = SA.split_beam_attention_plain(
+        q.float(), kp.float(), vp.float(), kl.float(), vl.float(), lo,
+        hi_live, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("l,b,c,s,hi", [(4, 5, 512, 384, 300),
+                                        (3, 8, 512, 1280, 452),
+                                        (2, 6, 256, 384, 1)])
+def test_reorder_kernel_matches_index_select(cuda, l, b, c, s, hi):
+    """K8: exact against index_select on slots c < hi; the slots past hi of
+    the NaN-filled destination are never read by K3 (its output over the
+    reordered cache is finite and equals its plain version over the
+    index_select result)."""
+    from godot_whisper_tpu_torch.ops import kv_reorder as R
+    gen = torch.Generator().manual_seed(5)
+    k = torch.randn(l, b, c, s, generator=gen).to(cuda, torch.bfloat16)
+    v = torch.randn(l, b, c, s, generator=gen).to(cuda, torch.bfloat16)
+    src = torch.tensor([(j * 3 + 1) % b for j in range(b - 1)] + [b - 1],
+                       dtype=torch.int32, device=cuda)
+    out = (torch.full_like(k, float("nan")), torch.full_like(v, float("nan")))
+    before = R.reorder_kv_live.launches
+    ko, vo = R.reorder_kv_live(k, v, src, hi, out=out)
+    torch.cuda.synchronize()
+    assert R.reorder_kv_live.launches == before + 1
+    kr, vr = R.reorder_kv_live_plain(k, v, src, hi)
+    assert torch.equal(ko[:, :, :hi], kr[:, :, :hi])
+    assert torch.equal(vo[:, :, :hi], vr[:, :, :hi])
+    q = torch.randn(b, s, generator=gen).to(cuda, torch.bfloat16)
+    lo = torch.ones(b, dtype=torch.int32, device=cuda)
+    kw = dict(split=max(hi - 1, 1), n_head=s // 64, layer=l - 1)
+    got = D.decode_attention(q, ko, vo, lo, hi, **kw)
+    want = D.decode_attention_plain(q, kr, vr, lo, hi, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def test_beam5_golden_through_kernels(cuda):
+    """init_params(nano, seed=3) in f32 on the card reproduces
+    nano_decode.json["beam5"] through K6 and K7."""
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=2, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano")
+    ctx = gt.WhisperContext.from_params(
+        cfg, gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                            device=cuda),
+        device=cuda)
+    pipe = ctx.pipeline
+    t = np.arange(5 * 16000) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 220.0 * t)
+             + 0.2 * np.sin(2 * np.pi * 447.0 * t)
+             * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t))).astype(np.float32)
+    mel, _ = pipe.mel.device(audio)
+    xkv = cross_kv(pipe.params, cfg,
+                   encoder_forward(pipe.params, cfg, mel[:, :3000].T[None]))
+    wd = WindowDecoder(cfg, build_filter_context(cfg, pipe.tokenizer,
+                                                 device=cuda))
+    k6, k7 = FS.fused_filter_topk.launches, SA.split_beam_attention.launches
+    res = wd.decode(pipe.params, xkv, np.asarray([cfg.token_sot], np.int32),
+                    n_decoders=5, temperature=0.0, strategy="beam",
+                    beam_size=5, seek=0, seek_end=500, suppress_blank=True,
+                    no_timestamps=False, single_segment=False, max_tokens=0,
+                    test_mode=False)
+    assert FS.fused_filter_topk.launches > k6
+    assert SA.split_beam_attention.launches > k7
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "nano_decode.json")) as f:
+        want = json.load(f)["beam5"]
+    n = res.n_steps
+    assert n == want["n_steps"]
+    assert res.tokens[:, :n].tolist() == want["tokens"]
+    assert res.tok_tid[:, :n].tolist() == want["tid"]
+    assert res.seek_delta.tolist() == want["seek_delta"]
+    assert [round(float(x), 3) for x in res.sum_logprobs_all] == \
+        want["sum_logprobs"]

@@ -218,7 +218,7 @@ def test_pipeline_helpers_need_a_device():
 
 
 @pytest.mark.parametrize("kw,base", [
-    (dict(strategy=gt.SamplingStrategy.BEAM_SEARCH), "tiny.en"),
+    (dict(cross_kv_int8=True), "tiny.en"),
     (dict(grammar_rules="root ::= \"a\""), "tiny.en"),
     (dict(logits_filter_callback=lambda *a: None), "tiny.en"),
     (dict(language="auto"), "tiny"),
