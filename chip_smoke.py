@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    the same function (a yardstick only; the port never calls it).
    Beam search's kernels too: K6 filter + top-K, K7 split prompt / live
    attention (with a permuted row map) and K8 the bounded cache reorder
-   (into a NaN-filled cache, then K3 over it).
+   (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
+   K9 int8 matmul (io and oi, decode rows and the 1500-row cross-K/V
+   projection), K10 int4 matmul, K11 / K12 int8 cross-attention (exact
+   and W8A8).
 3. golden -- the nano model (numpy seed 3, f32) on the card reproduces
    tests/golden/nano_decode.json["greedy"] and ["beam5"] (K6 + K7) and
    the clip scenarios "multiwindow" and "translate" of
@@ -30,6 +33,15 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    the depth cut to 2 + 3 layers, beam 8 (8 x 20 heads > 128: the merged
    cache), 10 s of audio, counters zeroed just before; K8 must have
    launched and K7 not.
+7. quantized paths -- (1) synthetic("tiny.en", seed=0, quantize="int8")
+   .full(TranscribeParams(cross_kv_int8=True), 34 s): K9 (io and oi) and
+   K12 must launch, and no cross-attention through K4 (kv_group 5);
+   (2) quantize="int4" with TranscribeParams(strategy=BEAM_SEARCH,
+   cross_kv_int8=True): K10, K9 (oi), K12, K6 and K7 must launch.
+   Counters zeroed just before each.
+8. wide quantized route -- phase 6's large-v3 widths with quantize="int4",
+   cross_kv_int8 and beam 8 (8 x 20 heads > 128): K11, K10 and K8 must
+   launch, K12 must not.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -489,6 +501,161 @@ def check_beam_kernels(torch, rng):
     return recs
 
 
+def check_quant_kernels(torch, rng):
+    """K9-K12 against their plain versions at the quantized paths' shapes
+    (tiny.en and large-v3 widths); then their times.  The library yardstick
+    of K9 / K10 is torch.mm on the weight already held in bf16 (the bf16
+    model's cost, which quantization aims to beat); of K11 / K12 SDPA over
+    K/V dequantized beforehand.  The port calls neither."""
+    from godot_whisper_tpu_torch.models.model import (CrossKV,
+                                                      quantize_cross_kv)
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = {}
+
+    def tens(*shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, dtype)
+
+    # ---- K9 / K10: f32 sums in another order (tensor-core accumulation
+    # included) must stay within 1e-5 of each element's sum of |terms|
+    def qmm_case(kind, layout, m, s, o, tag, key=None):
+        x = tens(m, s, dtype=torch.bfloat16)
+        w = tens(s, o, scale=0.02)
+        if kind == "int4":
+            qt = Q.quantize_tensor4(w)
+            w_deq = Q.dequantize4(qt)
+
+            def run():
+                return Q.quant_matmul4(x, qt)
+
+            def plain():
+                return Q.quant_matmul4_plain(x, qt)
+            w_bytes = s * o // 2 + (s // qt.group) * o * 4
+        else:
+            qt = (Q.quantize_tensor(w.t().contiguous(), reduce_axis=1)
+                  if layout == "oi" else Q.quantize_tensor(w, reduce_axis=0))
+            w_deq = Q.dequantize(qt)
+            w_deq = w_deq.t() if layout == "oi" else w_deq
+
+            def run():
+                return Q.quant_matmul(x, qt, layout=layout)
+
+            def plain():
+                return Q.quant_matmul_plain(x, qt, layout=layout)
+            w_bytes = s * o + o * 4
+        kname = "K10" if kind == "int4" else "K9"
+        got = run()
+        sync()
+        want = plain()
+        err = (got - want).abs()
+        share = float((err / (1e-5 * (x.float().abs() @ w_deq.abs())
+                              + 1e-7)).max())
+        e_max = float(err.max())
+        log(f"{kname} {kind} {layout} [{tag}] x ({m}, {s}) -> ({m}, {o}): "
+            f"max_abs_err {e_max:.3e}, worst share of the tol 1e-5 sum|x w| "
+            f"+ 1e-7 {share:.3f} (must be <= 1)")
+        if not share <= 1.0:
+            fail(f"{kname} [{tag}] disagrees with its plain version")
+        if key:
+            w_bf16 = w_deq.to(torch.bfloat16)
+            nbytes = w_bytes + m * s * 2 + m * o * 4
+            r = recs[key] = dict(
+                err=e_max, bound=bound(nbytes, 2 * m * s * o, PEAK_BF16),
+                ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
+                library_ms=time_ms(torch, lambda: torch.mm(
+                    x, w_bf16, out_dtype=torch.float32)))
+            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us, bound "
+                f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
+                f"plain {r['plain_ms'] * 1e3:.2f} us, torch.mm on bf16 W "
+                f"{r['library_ms'] * 1e3:.2f} us")
+
+    qmm_case("int8", "oi", 5, 384, 51864, "tiny.en logits", "qmatmul")
+    qmm_case("int8", "io", 5, 384, 1152, "tiny.en wqkv")
+    qmm_case("int8", "io", 1500, 384, 384, "tiny.en cross-K", "qmatmul_xk")
+    qmm_case("int8", "oi", 8, 1280, 51866, "large-v3 logits")
+    qmm_case("int8", "io", 1500, 1280, 1280, "large-v3 cross-K")
+    qmm_case("int4", "io", 5, 384, 1536, "tiny.en mlp.w0", "qmatmul4")
+    qmm_case("int4", "io", 1500, 384, 384, "tiny.en cross-K")
+    qmm_case("int4", "io", 8, 1280, 3840, "large-v3 wqkv")
+    qmm_case("int4", "io", 8, 5120, 1280, "large-v3 mlp.w1")
+    qmm_case("int4", "io", 1500, 1280, 1280, "large-v3 cross-K")
+
+    # ---- K11 / K12 over a quantized cross-KV (T 1536, 1500 valid)
+    def xattn_case(s, h, kg, n_layer, w8a8, tag, key=None):
+        k = tens(n_layer, 1, 1536, s, dtype=torch.bfloat16)
+        v = tens(n_layer, 1, 1536, s, dtype=torch.bfloat16)
+        x = quantize_cross_kv(CrossKV(k, v, 1500), h)
+        q = tens(kg, s, dtype=torch.bfloat16)
+        lo = torch.full((kg,), 1500, dtype=torch.int32, device=dev)
+        kw = dict(n_head=h, kv_group=kg, layer=n_layer - 1)
+        packed = CA.is_packed(h, kg)
+        kname = "K12" if packed else "K11"
+        mode = "W8A8" if w8a8 and packed else "exact"
+
+        def run():
+            return CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                            t_valid=lo, w8a8=w8a8, **kw)
+
+        def plain():
+            return CA.cross_attention_quant_plain(q, x.k_q, x.k_s, x.v_q,
+                                                  x.v_s, lo, w8a8=w8a8, **kw)
+        got = run()
+        sync()
+        want = plain()
+        err = (got - want).abs()
+        e_max = float(err.max())
+        if mode == "W8A8":
+            tol = 1e-4 + CA.w8a8_flip_limit(q, x.k_q, x.k_s, x.v_s, lo, **kw)
+            what = "1e-4 + one flipped round(127 p) per (row, head)"
+        else:
+            tol = torch.full_like(err, 1e-4)
+            what = "1e-4: the same arithmetic, f32 sums in another order"
+        share = float((err / tol).max())
+        log(f"{kname} xattn_q {mode} [{tag}] q ({kg}, {s}) kv "
+            f"{tuple(x.k_q.shape)} kv_group {kg}: max_abs_err {e_max:.3e}, "
+            f"worst share of the tol {share:.3f} (tol {what}; must be <= 1)")
+        if not share <= 1.0:
+            fail(f"{kname} [{tag}] disagrees with its plain version")
+        if key:
+            d = s // h
+            kf = (x.k_q[-1, 0].float().view(1536, h, d)
+                  * x.k_s[-1, 0, :, :h].float()[..., None])
+            vf = (x.v_q[-1, 0].float().view(1536, h, d)
+                  * x.v_s[-1, 0, :h, None])
+            kd = kf.to(torch.bfloat16).transpose(0, 1)[None].expand(
+                kg, h, 1536, d)
+            vd = vf.to(torch.bfloat16).transpose(0, 1)[None].expand(
+                kg, h, 1536, d)
+            qd = q.view(kg, h, 1, d)
+            mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
+            # int8 K/V and the bf16 k_s rows of the 1500 valid slots, v_s,
+            # q in, f32 out
+            nbytes = (2 * 1500 * s + 1500 * 128 * 2 + 128 * 4
+                      + kg * s * 2 + kg * s * 4 + kg * 4)
+            r = recs[key] = dict(
+                err=e_max, bound=bound(nbytes, 4 * kg * 1500 * s, PEAK_BF16),
+                ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
+                library_ms=time_ms(torch, lambda: sdpa(qd, kd, vd,
+                                                       attn_mask=mask)))
+            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us, bound "
+                f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
+                f"plain {r['plain_ms'] * 1e3:.2f} us, SDPA over dequantized "
+                f"bf16 K/V {r['library_ms'] * 1e3:.2f} us")
+
+    xattn_case(384, 6, 5, 4, True, "tiny.en kv_group 5", "xattn_packed")
+    xattn_case(384, 6, 5, 4, False, "tiny.en kv_group 5")
+    xattn_case(384, 6, 1, 4, True, "tiny.en kv_group 1")
+    xattn_case(1280, 20, 5, 3, True, "large-v3 kv_group 5")
+    xattn_case(1280, 20, 5, 3, False, "large-v3 kv_group 5")
+    xattn_case(1280, 20, 8, 3, False, "large-v3 beam 8", "xattn_wide")
+    return recs
+
+
 # --------------------------------------------------------------- phase 3 --
 def check_goldens(torch, gt):
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -589,11 +756,15 @@ def main() -> int:
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.ops import kernels
     from godot_whisper_tpu_torch.ops.attention import flash_attention_bh
+    from godot_whisper_tpu_torch.ops.cross_attention import (xattn_q_packed,
+                                                             xattn_q_wide)
     from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
     from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
                                                            fused_filter_topk)
     from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
     from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
+    from godot_whisper_tpu_torch.ops.qmatmul import (quant_matmul,
+                                                     quant_matmul4)
     from godot_whisper_tpu_torch.ops.split_attention import \
         split_beam_attention
 
@@ -617,6 +788,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     recs = check_kernels(torch, gt, rng)
     recs.update(check_beam_kernels(torch, rng))
+    recs.update(check_quant_kernels(torch, rng))
 
     # ---- phase 3: goldens through the kernels
     check_goldens(torch, gt)
@@ -625,12 +797,15 @@ def main() -> int:
     # read just after it
     counters = (log_mel_raw, flash_attention_bh, decode_attention,
                 fused_filter_sample, fused_filter_topk, split_beam_attention,
-                reorder_kv_live)
+                reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
+                xattn_q_packed)
 
     def drive(what, c, tparams, audio_s):
         for fn in counters:
             fn.launches = 0
         decode_attention.group_launches.clear()
+        quant_matmul.layout_launches.clear()
+        xattn_q_packed.mode_launches.clear()
         c.timings.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -638,6 +813,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = {fn.__name__: fn.launches for fn in counters}
+        n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
+        n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
         grp = dict(decode_attention.group_launches)
         tm = c.timings
         log(f"{what}: {len(segs)} segments, wall {wall:.3f} s, "
@@ -683,13 +860,55 @@ def main() -> int:
         fail("the wide beam route did not go through K8 (or went through "
              "K7)")
 
+    # ---- phase 7: the quantized paths (tiny.en, full width)
+    ctx8 = gt.WhisperContext.synthetic("tiny.en", seed=0, quantize="int8")
+    n7, grp7 = drive("quantized path 1: tiny.en int8 weights, int8 cross-KV "
+                     "(W8A8), default ladder, 34.0 s audio", ctx8,
+                     gt.TranscribeParams(cross_kv_int8=True), 34.0)
+    if not (n7["quant_matmul"] > n7["quant_matmul_oi"] > 0
+            and n7["xattn_q_packed_w8a8"] and n7["log_mel_raw"]
+            and n7["flash_attention_bh"] and n7["fused_filter_sample"]
+            and grp7.get(1)) or grp7.get(5) or n7["quant_matmul4"]:
+        fail("quantized path 1 did not go through K9 (io and oi) and K12, "
+             "or sent cross-attention through K4")
+    del ctx8
+    ctx4 = gt.WhisperContext.synthetic("tiny.en", seed=0, quantize="int4")
+    n7b, grp7b = drive("quantized path 2: tiny.en int4 weights, int8 "
+                       "cross-KV (W8A8), beam 5, 34.0 s audio", ctx4,
+                       gt.TranscribeParams(strategy=beam, cross_kv_int8=True),
+                       34.0)
+    if not (n7b["quant_matmul4"] and n7b["quant_matmul_oi"]
+            and n7b["xattn_q_packed"] and n7b["fused_filter_topk"]
+            and n7b["split_beam_attention"]) or grp7b.get(5):
+        fail("quantized path 2 did not go through K10, K9 (oi), K12, K6 and "
+             "K7")
+    del ctx4
+
+    # ---- phase 8: the wide quantized route (K11): large-v3 widths, int4
+    del wctx
+    wctx4 = gt.WhisperContext.from_params(
+        wide, gt.init_params(wide, seed=0, device="cuda"), device="cuda",
+        quantize="int4")
+    n8, _ = drive("wide quantized route: large-v3 widths cut to 2 audio + 3 "
+                  "text layers, int4 weights, int8 cross-KV, beam 8, 10.0 s "
+                  "audio", wctx4,
+                  beam_params(beam_size=8, best_of=8, temperature_inc=0.0,
+                              cross_kv_int8=True), 10.0)
+    if not (n8["xattn_q_wide"] and n8["quant_matmul4"]
+            and n8["reorder_kv_live"]) or n8["xattn_q_packed"]:
+        fail("the wide quantized route did not go through K11, K10 and K8 "
+             "(or went through K12)")
+
     tpu = {"mel": "mel_kernel.py:77", "enc_attn": "attention.py:105",
            "decode_attn_k3": "decode_attention.py:126",
            "decode_attn_k4": "decode_attention.py:221",
            "filter_sample": "filter_sample.py:113",
            "filter_topk": "filter_sample.py:178",
            "split_attn": "split_attention.py:59",
-           "kv_reorder": "kv_reorder.py:68"}
+           "kv_reorder": "kv_reorder.py:68",
+           "qmatmul": "qmatmul.py:264", "qmatmul4": "qmatmul.py:151",
+           "xattn_wide": "cross_attention.py:50",
+           "xattn_packed": "cross_attention.py:128"}
     names = {"mel": ("log_mel_raw", "mel.cu"),
              "enc_attn": ("flash_attention_bh", "enc_attn.cu"),
              "decode_attn_k3": ("decode_attention[kv_group=1]",
@@ -699,9 +918,15 @@ def main() -> int:
              "filter_sample": ("fused_filter_sample", "filter_sample.cu"),
              "filter_topk": ("fused_filter_topk", "filter_sample.cu"),
              "split_attn": ("split_beam_attention", "split_attn.cu"),
-             "kv_reorder": ("reorder_kv_live", "kv_reorder.cu")}
+             "kv_reorder": ("reorder_kv_live", "kv_reorder.cu"),
+             "qmatmul": ("quant_matmul", "qmatmul.cu"),
+             "qmatmul4": ("quant_matmul4", "qmatmul.cu"),
+             "xattn_wide": ("xattn_q_wide", "cross_attn.cu"),
+             "xattn_packed": ("xattn_q_packed", "cross_attn.cu")}
     # launches: K1-K5 from the greedy main path (phase 4), K6 and K7 from
-    # the beam path (phase 5), K8 from the wide beam route (phase 6)
+    # the beam path (phase 5), K8 from the wide beam route (phase 6), K9
+    # and K12 from quantized path 1, K10 from path 2, K11 from the wide
+    # quantized route (phases 7-8)
     n_launch = {"mel": launches["log_mel_raw"],
                 "enc_attn": launches["flash_attention_bh"],
                 "decode_attn_k3": groups.get(1, 0),
@@ -709,7 +934,17 @@ def main() -> int:
                 "filter_sample": launches["fused_filter_sample"],
                 "filter_topk": n5["fused_filter_topk"],
                 "split_attn": n5["split_beam_attention"],
-                "kv_reorder": n6["reorder_kv_live"]}
+                "kv_reorder": n6["reorder_kv_live"],
+                "qmatmul": n7["quant_matmul"],
+                "qmatmul4": n7b["quant_matmul4"],
+                "xattn_wide": n8["xattn_q_wide"],
+                "xattn_packed": n7["xattn_q_packed"]}
+    # K9's second main-path shape, the 1500-row cross-K/V projection: its
+    # numbers go to the log, the kernels line keeps one entry per kernel
+    xk = recs.pop("qmatmul_xk")
+    log(f"K9 io cross-K (1500, 384) x (384, 384): ms {xk['ms']}, plain_ms "
+        f"{xk['plain_ms']}, bound_ms {xk['bound'][0]} ({xk['bound'][1]}), "
+        f"torch.mm bf16 ms {xk['library_ms']}")
     out = []
     for key, r in recs.items():
         b_ms, b_by = r["bound"]

@@ -13,6 +13,11 @@ Quick start::
     ctx = gwt.WhisperContext.synthetic("tiny.en", seed=0)   # on cuda
     segments = ctx.full(gwt.TranscribeParams(), samples)
     print(ctx.text())
+
+Quantized decoding: ``synthetic(..., quantize="int8" | "int4" |
+"int8_embed")`` (or ``from_params``) stores the decoder weights in 8 or 4
+bits, and ``TranscribeParams(cross_kv_int8=True)`` the cross-attention K/V
+in 8 bits.
 """
 
 from __future__ import annotations
@@ -52,12 +57,15 @@ class WhisperContext:
     def from_params(cls, config: WhisperConfig, params, *, device=None,
                     tokenizer: Optional[Tokenizer] = None,
                     mel_filters: Optional[np.ndarray] = None,
-                    n_loaded: int = 1) -> "WhisperContext":
+                    n_loaded: int = 1,
+                    quantize: Optional[str] = None) -> "WhisperContext":
         """Wrap a parameter tree (``models.params`` layout) in a context on
-        ``device``.  The tokenizer defaults to the synthetic vocab and the
-        filterbank to the Slaney mel filters."""
+        ``device``, its decoder quantized as ``quantize`` asks (see
+        ``_quantize``).  The tokenizer defaults to the synthetic vocab and
+        the filterbank to the Slaney mel filters."""
         dev = resolve_device(device)
-        params = {k: _to_device(v, dev) for k, v in params.items()}
+        params = cls._quantize({k: _to_device(v, dev)
+                                for k, v in params.items()}, quantize)
         tok = tokenizer or Tokenizer(config, synthetic_vocab(config))
         filters = (mel_filters if mel_filters is not None
                    else mel_filterbank(config.n_mels))
@@ -66,15 +74,32 @@ class WhisperContext:
 
     @classmethod
     def synthetic(cls, name: str = "tiny.en", *, seed: int = 0,
-                  compute_dtype=torch.bfloat16,
-                  device=None) -> "WhisperContext":
+                  compute_dtype=torch.bfloat16, device=None,
+                  quantize: Optional[str] = None) -> "WhisperContext":
         """Random-weight model (the JAX package's ``init_params`` weights
         for the same seed) for benches and tests; no checkpoint needed."""
         dev = resolve_device(device)
         config = get_config(name)
         params = init_params(config, seed=seed, compute_dtype=compute_dtype,
                              device=dev)
-        return cls.from_params(config, params, device=dev)
+        return cls.from_params(config, params, device=dev, quantize=quantize)
+
+    @staticmethod
+    def _quantize(params, quantize: Optional[str]):
+        """The JAX package's modes: "int8" (decoder weights and token
+        embedding int8), "int4" (decoder weights int4, embedding int8),
+        "int8_embed" (the token embedding only); None keeps the tree."""
+        if quantize in (None, "", "none"):
+            return params
+        from .models import quant
+        if quantize in ("int8", "q8", "q8_0"):
+            return quant.quantize_decoder_int8(params)
+        if quantize in ("int4", "q4", "q4_0"):
+            return quant.quantize_decoder_int4(params)
+        if quantize in ("int8_embed", "q8_embed"):
+            return quant.quantize_embed_int8(params)
+        raise ValueError(f"unknown quantize mode {quantize!r} "
+                         "(supported: 'int8', 'int4', 'int8_embed')")
 
     # ----------------------------------------------------------------- basics
     @property
@@ -103,4 +128,4 @@ class WhisperContext:
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree.to(dev)  # a tensor or a QuantTensor / Quant4Tensor

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models.config import WhisperConfig
-from ..models.model import cross_kv, encoder_forward
+from ..models.model import cross_kv, encoder_forward, quantize_cross_kv
 from .filters import FilterContext
 from .window import (WindowResult, WindowStatics, prompt_pass_grouped,
                      run_decode_loop, use_split_cache)
@@ -59,6 +59,7 @@ class ClipStatics:
     seed: int
     n_dec: int = 1             # decoder rows per stream (beam/best_of)
     strategy: str = "greedy"   # "greedy" | "beam" (beam on the t=0 rung)
+    cross_int8: bool = False   # int8-quantize the cross-KV per window
 
 
 class ClipOutputs(NamedTuple):
@@ -219,6 +220,8 @@ class ClipDecoder:
                                   mel_windows(mel, seek, n_len, n_ctx),
                                   audio_ctx=s.audio_ctx or None)
             xkv = cross_kv(params, config, enc)
+            if s.cross_int8:
+                xkv = quantize_cross_kv(xkv, config.n_text_head)
 
             # stale context near the end of audio (whisper.cpp:5176-5180)
             cnt = np.where(active & (seek > seek_start)

@@ -12,9 +12,11 @@ Two paths, chosen as the JAX package chooses them:
   encoder-begin and abort callbacks: one encode and one ``WindowDecoder``
   call per (window, rung), each rung at its own width.
 
-What the JAX package serves through its host-stepped decoder (grammar and
-the logit-filter callback), language auto-detection, token-level
-timestamps, injected mels and int8 cross-KV wait for later slices; ``full``
+``TranscribeParams.cross_kv_int8`` quantizes each window's cross-KV to int8
+right after it is projected (``models.model.quantize_cross_kv``) on both
+paths.  What the JAX package serves through its host-stepped decoder
+(grammar and the logit-filter callback), language auto-detection,
+token-level timestamps and injected mels wait for later slices; ``full``
 raises NotImplementedError for them instead of ignoring them.
 
 Timestamps are in the reference's centisecond units (t0/t1 are 10 ms ticks,
@@ -32,7 +34,7 @@ import numpy as np
 from ..audio.mel import MelFrontend, frame_counts
 from ..audio.tokenizer import Tokenizer
 from ..models.config import MAX_DECODERS, WhisperConfig
-from ..models.model import cross_kv, encoder_forward
+from ..models.model import cross_kv, encoder_forward, quantize_cross_kv
 from ..runtime.metrics import Timings
 from ..runtime.trace import tracer
 from .clip import ClipDecoder, ClipStatics, mel_windows
@@ -79,8 +81,6 @@ def _unsupported(tparams: TranscribeParams,
         return "logits_filter_callback"
     if tparams.token_timestamps:
         return "token-level timestamps"
-    if tparams.cross_kv_int8:
-        return "int8 cross-attention KV"
     return None
 
 
@@ -213,7 +213,7 @@ class WhisperPipeline:
             max_tokens=tparams.max_tokens,
             test_mode=(self.n_loaded == 0), seed=tparams.seed,
             n_dec=max(tparams.n_decoders_at(t) for t in temperatures),
-            strategy=_strategy(tparams))
+            strategy=_strategy(tparams), cross_int8=tparams.cross_kv_int8)
         key = (statics, tparams.suppress_non_speech_tokens,
                tparams.tdrz_enable, round(tparams.max_initial_ts, 6),
                tuple(prompt_init))
@@ -258,8 +258,10 @@ class WhisperPipeline:
             self._window_decoders[key] = wd
         return wd
 
-    def encode_window(self, seek: int, audio_ctx: int = 0):
-        """Encode mel[seek : seek + 2 * n_ctx] -> (enc_out, CrossKV)
+    def encode_window(self, seek: int, audio_ctx: int = 0,
+                      quant_kv: bool = False):
+        """Encode mel[seek : seek + 2 * n_ctx] -> (enc_out, CrossKV), the
+        cross-KV int8 (QuantCrossKV) with ``quant_kv``
         (whisper_encode_internal's window slice, whisper.cpp:1697-1706)."""
         n_ctx = audio_ctx or self.config.n_audio_ctx
         t0 = time.perf_counter()
@@ -269,6 +271,8 @@ class WhisperPipeline:
             enc = encoder_forward(self.params, self.config, wins,
                                   audio_ctx=audio_ctx or None)
             xkv = cross_kv(self.params, self.config, enc)
+            if quant_kv:
+                xkv = quantize_cross_kv(xkv, self.config.n_text_head)
         self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
         self.timings.n_encode += 1
         return enc, xkv
@@ -295,7 +299,8 @@ class WhisperPipeline:
             if (tparams.encoder_begin_callback
                     and not tparams.encoder_begin_callback(self)):
                 break
-            _, xkv = self.encode_window(seek, tparams.audio_ctx)
+            _, xkv = self.encode_window(seek, tparams.audio_ctx,
+                                        tparams.cross_kv_int8)
 
             # drop stale context near the end (whisper.cpp:5176-5180)
             if seek > seek_start and seek + 500 >= seek_end:

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models.config import WhisperConfig
-from ..models.model import (CrossKV, KVCache, decoder_dense, decoder_step,
+from ..models.model import (KVCache, decoder_dense, decoder_step,
                             init_kv_cache, param_compute_dtype,
                             round_cache_len)
 from ..ops.filter_sample import fused_filter_sample, fused_filter_topk
@@ -98,10 +98,11 @@ def use_split_cache(statics: WindowStatics) -> bool:
 
 def prompt_pass_per_stream(params, config: WhisperConfig,
                            prompt: torch.Tensor, n_prompt: np.ndarray,
-                           xkv: CrossKV, n_max: Optional[int] = None):
+                           xkv, n_max: Optional[int] = None):
     """Per-stream prompt decode: each row its own prompt (B, P) with its
-    own length.  The cache holds P + n_max slots; the padded prompt
-    capacity P is the decode loop's ``split``.  Returns (last_logits
+    own length; ``xkv`` a CrossKV or an int8 QuantCrossKV.  The cache holds
+    P + n_max slots; the padded prompt capacity P is the decode loop's
+    ``split``.  Returns (last_logits
     (B, V) f32, kv)."""
     B, P = prompt.shape
     dev = prompt.device
@@ -119,7 +120,7 @@ def prompt_pass_per_stream(params, config: WhisperConfig,
 
 
 def prompt_pass_grouped(params, config: WhisperConfig, prompt: torch.Tensor,
-                        n_prompt: np.ndarray, xkv: CrossKV, n_dec: int,
+                        n_prompt: np.ndarray, xkv, n_dec: int,
                         n_max: Optional[int] = None, repeat_kv: bool = True):
     """Grouped prompt pass: G streams decode their prompts ONCE, then the
     logits and self-KV repeat to each stream's n_dec decoder rows
@@ -221,7 +222,7 @@ def permute_rowmap(rowmap: np.ndarray, src: np.ndarray, i: int,
 
 
 def run_decode_loop(params, config: WhisperConfig, fctx: FilterContext,
-                    statics: WindowStatics, xkv: CrossKV, kv: KVCache,
+                    statics: WindowStatics, xkv, kv: KVCache,
                     last_logits: torch.Tensor, n_prompt, temperature: float,
                     seek, seek_end, rng_seed: int) -> WindowResult:
     """The autoregressive window loop given a finished prompt pass.
@@ -407,14 +408,15 @@ class WindowDecoder:
         self.config = config
         self.fctx = fctx
 
-    def decode(self, params, xkv: CrossKV, prompt_tokens: np.ndarray, *,
+    def decode(self, params, xkv, prompt_tokens: np.ndarray, *,
                n_decoders: int, temperature: float, seek: int, seek_end: int,
                suppress_blank: bool, no_timestamps: bool,
                single_segment: bool, max_tokens: int, test_mode: bool,
                seed: int = 0, strategy: str = "greedy", beam_size: int = 1,
                force_merged_cache: bool = False) -> WindowResult:
-        """``force_merged_cache`` (tests) takes the wide configurations'
-        beam path, the merged cache reordered by K8, at any width."""
+        """``xkv`` is a CrossKV or an int8 QuantCrossKV.
+        ``force_merged_cache`` (tests) takes the wide configurations' beam
+        path, the merged cache reordered by K8, at any width."""
         config = self.config
         n_max = config.n_text_ctx // 2 - 4  # whisper.cpp:5288
         P = int(len(prompt_tokens))
@@ -434,7 +436,7 @@ class WindowDecoder:
             beam_size=beam_size, force_merged_cache=force_merged_cache)
         prompt = np.zeros((1, pad), np.int32)
         prompt[0, :P] = prompt_tokens
-        dev = xkv.k.device
+        dev = xkv.device
         last, kv = prompt_pass_grouped(
             params, config, torch.from_numpy(prompt).to(dev),
             np.asarray([P]), xkv, n_decoders, n_max=n_max,

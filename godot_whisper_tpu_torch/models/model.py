@@ -7,11 +7,17 @@ the same public layouts):
 - encoder: pre-LN blocks, the K projection has no bias, 4x GELU MLP,
   final ln_post; positional embedding sliced to ``audio_ctx``;
 - cross-KV: K/V of every decoder layer projected once per window, kept
-  merged-head ``(L, B, T_pad, S)`` with ``t_valid``;
+  merged-head ``(L, B, T_pad, S)`` with ``t_valid``, optionally int8 with
+  per-(slot, head) K scales and per-head V scales (``QuantCrossKV``);
 - decoder: token + position embedding, self-attention over a merged-head
   KV cache ``(L, B, C, S)`` (in beam search, over a prompt cache per
   group plus a live cache per beam), cross-attention, logits against the
   token embedding.
+
+A quantized decoder (models/quant.py) carries ``QuantTensor`` /
+``Quant4Tensor`` weights: its projections run K9/K10 (f32 result, f32 bias,
+one rounding to bf16), the self q/k/v projections are one fused ``wqkv``,
+and the embedding gather and logits read the int8 token embedding.
 
 bf16 rounding points follow the JAX package: every projection accumulates
 in f32, adds its f32 bias and rounds once to the compute dtype; LayerNorm
@@ -30,7 +36,10 @@ import torch
 import torch.nn.functional as Fn
 
 from ..ops.attention import flash_attention_bh
+from ..ops.cross_attention import H_PAD, cross_attention_quant
 from ..ops.decode_attention import decode_attention
+from ..ops.qmatmul import (QUANT_TYPES, QuantTensor, qlayer, quant_matmul,
+                           quant_matmul4)
 from ..ops.split_attention import split_beam_attention
 from .config import WhisperConfig
 
@@ -41,7 +50,9 @@ _BLOCK_C = 256  # cache-slot granularity (the decode-attention block)
 
 
 def param_compute_dtype(params: Params) -> torch.dtype:
-    return params["decoder"]["token_embed"].dtype
+    """Matmul compute dtype: bf16 for a quantized decoder."""
+    te = params["decoder"]["token_embed"]
+    return torch.bfloat16 if isinstance(te, QuantTensor) else te.dtype
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -64,15 +75,42 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def _proj(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
           out_dtype=None) -> torch.Tensor:
+    if isinstance(w, QUANT_TYPES):
+        y = (quant_matmul(x, w, layout="io") if isinstance(w, QuantTensor)
+             else quant_matmul4(x, w))
+        if b is not None:
+            y = y + b
+        return y.to(out_dtype if out_dtype is not None else torch.bfloat16)
     y = _matmul_f32(x, w)
     if b is not None:
         y = y + b
     return y.to(out_dtype if out_dtype is not None else w.dtype)
 
 
+def _self_qkv(h: torch.Tensor, attn) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Self-attention q/k/v projections; a quantized decoder carries one
+    fused (S, 3S) ``wqkv`` (one launch, the same numbers); its q comes out
+    contiguous for the attention kernels, k and v are written into the
+    caches."""
+    if "wqkv" in attn:
+        y = _proj(h, attn["wqkv"], attn["bqkv"])
+        s = y.shape[-1] // 3
+        return y[..., :s].contiguous(), y[..., s:2 * s], y[..., 2 * s:]
+    return (_proj(h, attn["wq"], attn["bq"]), _proj(h, attn["wk"]),
+            _proj(h, attn["wv"], attn["bv"]))
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU.  On bf16 input, the rounding of the JAX package's
+    compiled ``jax.nn.gelu``: erfc(-x * bf16(sqrt(1/2))) in f32, rounded to
+    bf16, times 0.5 x, rounded to bf16 (torch's one rounding of the f32
+    result differs in about a quarter of the elements by one bf16 ulp)."""
+    if x.dtype == torch.bfloat16:
+        e = torch.special.erfc(x.float() * -0.70703125).to(torch.bfloat16)
+        return (0.5 * x) * e
     return Fn.gelu(x, approximate="none")
 
 
@@ -170,6 +208,57 @@ class CrossKV(NamedTuple):
     v: torch.Tensor
     t_valid: int
 
+    @property
+    def t_pad(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.k.device
+
+
+class QuantCrossKV(NamedTuple):
+    """Int8 cross-attention KV, merged-head: K keeps one scale per (slot,
+    head), which factors out of the score contraction; V one per head,
+    which factors out of the probability-weighted sum.  Scales ride padded
+    to the 128-lane head tile of the kernels (zeros beyond n_head)."""
+    k_q: torch.Tensor   # (L, B, T_pad, S) int8
+    k_s: torch.Tensor   # (L, B, T_pad, 128) bf16
+    v_q: torch.Tensor   # (L, B, T_pad, S) int8
+    v_s: torch.Tensor   # (L, B, 128) f32
+    t_valid: int
+
+    @property
+    def t_pad(self) -> int:
+        return self.k_q.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.k_q.device
+
+
+def quantize_cross_kv(xkv: CrossKV, n_head: int) -> QuantCrossKV:
+    """The JAX package's rounding points as its jitted window encode
+    computes them: absmax scales in f32 (XLA compiles ``/ 127.0`` to
+    ``* f32(1/127)``); q = round(x / max(scale, 1e-9)) clipped to
+    [-127, 127]; then k_s padded to 128 lanes and rounded to bf16, v_s kept
+    f32."""
+    l, b, t, s = xkv.k.shape
+    d = s // n_head
+    kf = xkv.k.float().reshape(l, b, t, n_head, d)
+    vf = xkv.v.float().reshape(l, b, t, n_head, d)
+    k_s = kf.abs().amax(dim=-1) * (1.0 / 127.0)                # (L, B, T, H)
+    k_q = torch.clamp(torch.round(kf / torch.clamp_min(k_s[..., None], 1e-9)),
+                      -127, 127).to(torch.int8).reshape(l, b, t, s)
+    v_s = vf.abs().amax(dim=(2, 4)) * (1.0 / 127.0)            # (L, B, H)
+    v_q = torch.clamp(torch.round(
+        vf / torch.clamp_min(v_s[:, :, None, :, None], 1e-9)),
+        -127, 127).to(torch.int8).reshape(l, b, t, s)
+    k_s = Fn.pad(k_s, (0, H_PAD - n_head)).to(torch.bfloat16)
+    v_s = Fn.pad(v_s, (0, H_PAD - n_head))
+    return QuantCrossKV(k_q=k_q, k_s=k_s.contiguous(), v_q=v_q,
+                        v_s=v_s.contiguous(), t_valid=xkv.t_valid)
+
 
 def cross_kv(params: Params, config: WhisperConfig,
              enc_out: torch.Tensor) -> CrossKV:
@@ -178,8 +267,8 @@ def cross_kv(params: Params, config: WhisperConfig,
     ca = params["decoder"]["blocks"]["cross_attn"]
     ks, vs = [], []
     for li in range(config.n_text_layer):
-        ks.append(_proj(enc_out, ca["wk"][li]))
-        vs.append(_proj(enc_out, ca["wv"][li], ca["bv"][li]))
+        ks.append(_proj(enc_out, qlayer(ca["wk"], li)))
+        vs.append(_proj(enc_out, qlayer(ca["wv"], li), ca["bv"][li]))
     k, v = torch.stack(ks), torch.stack(vs)
     t = k.shape[2]
     t_pad = round_cache_len(t)
@@ -211,30 +300,55 @@ def init_kv_cache(config: WhisperConfig, batch: int,
 
 
 def _embed(dec, tokens: torch.Tensor, positions: torch.Tensor, cdtype):
-    x = dec["token_embed"][tokens.long()].float()
+    te = dec["token_embed"]
+    t = tokens.long()
+    if isinstance(te, QuantTensor):
+        # int8 rows times their per-row scales
+        x = te.q[t].float() * te.s[t][..., None]
+    else:
+        x = te[t].float()
     return (x + dec["pos_embed"][positions.long()]).to(cdtype)
 
 
 def _logits(dec, x: torch.Tensor) -> torch.Tensor:
-    """x (..., S) -> (..., V) f32 against the token embedding."""
-    return _matmul_f32(x, dec["token_embed"].t())
+    """x (..., S) -> (..., V) f32 against the token embedding (the int8
+    one through K9's ``oi`` layout)."""
+    te = dec["token_embed"]
+    if isinstance(te, QuantTensor):
+        return quant_matmul(x, te, layout="oi")
+    return _matmul_f32(x, te.t())
 
 
 def _layer(blocks, li: int):
-    return {name: {k: v[li] for k, v in sub.items()}
+    return {name: {k: qlayer(v, li) for k, v in sub.items()}
             for name, sub in blocks.items()}
+
+
+def _dequant_xkv_layer(xkv: QuantCrossKV, li: int, n_head: int):
+    """Layer li of an int8 cross-KV -> bf16 (B, T, S) k/v (the dense prompt
+    pass attends through ``mha``)."""
+    k_q, k_s, v_q, v_s = (xkv.k_q[li], xkv.k_s[li], xkv.v_q[li],
+                          xkv.v_s[li])
+    b, t, s = k_q.shape
+    d = s // n_head
+    k = (k_q.float().reshape(b, t, n_head, d)
+         * k_s[..., :n_head].float()[..., None]).reshape(b, t, s)
+    v = (v_q.float().reshape(b, t, n_head, d)
+         * v_s[:, None, :n_head, None]).reshape(b, t, s)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
 def decoder_dense(params: Params, config: WhisperConfig,
                   tokens: torch.Tensor, positions: torch.Tensor,
-                  kv: KVCache, xkv: CrossKV, n_valid: torch.Tensor,
+                  kv: KVCache, xkv, n_valid: torch.Tensor,
                   logit_rows: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, KVCache]:
     """Decoder over T new tokens written at cache slots [0, T): the prompt
-    pass.  Slot c is visible to query t iff c <= t and c < n_valid[b].  ``logit_rows`` (B,) keeps
-    only those positions' logits.  Attention here is the plain masked
-    product (``mha``), as the JAX package leaves it to XLA.  Writes into
-    ``kv`` in place and returns (logits, kv)."""
+    pass.  Slot c is visible to query t iff c <= t and c < n_valid[b].
+    ``logit_rows`` (B,) keeps only those positions' logits.  Attention here
+    is the plain masked product (``mha``), as the JAX package leaves it to
+    XLA; an int8 ``xkv`` (QuantCrossKV) is dequantized per layer to bf16
+    first.  Writes into ``kv`` in place and returns (logits, kv)."""
     dec = params["decoder"]
     n_head = config.n_text_head
     cdtype = param_compute_dtype(params)
@@ -249,8 +363,8 @@ def decoder_dense(params: Params, config: WhisperConfig,
     ok = (c_pos <= q_idx) & (c_pos < nv)
     zero = torch.zeros((), device=dev)
     self_mask = torch.where(ok, zero, torch.full((), _NEG, device=dev))
-    t_pad = xkv.k.shape[2]
-    xok = torch.arange(t_pad, device=dev) < xkv.t_valid
+    quant_xkv = isinstance(xkv, QuantCrossKV)
+    xok = torch.arange(xkv.t_pad, device=dev) < xkv.t_valid
     cross_mask = torch.where(xok, zero, torch.full((), _NEG, device=dev))
 
     def heads4(z):
@@ -264,16 +378,18 @@ def decoder_dense(params: Params, config: WhisperConfig,
         layer = _layer(dec["blocks"], li)
         ln0, attn = layer["attn_ln"], layer["attn"]
         h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
-        q = _proj(h, attn["wq"], attn["bq"])
-        kv.k[li, :, :T] = _proj(h, attn["wk"]).to(kv.k.dtype)
-        kv.v[li, :, :T] = _proj(h, attn["wv"], attn["bv"]).to(kv.v.dtype)
+        q, k_new, v_new = _self_qkv(h, attn)
+        kv.k[li, :, :T] = k_new.to(kv.k.dtype)
+        kv.v[li, :, :T] = v_new.to(kv.v.dtype)
         o = attend(q, kv.k[li], kv.v[li], self_mask)
         x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
         h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
         qc = _proj(h, cattn["wq"], cattn["bq"])
-        oc = attend(qc, xkv.k[li], xkv.v[li], cross_mask)
+        xk, xv = (_dequant_xkv_layer(xkv, li, n_head) if quant_xkv
+                  else (xkv.k[li], xkv.v[li]))
+        oc = attend(qc, xk, xv, cross_mask)
         x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
                       out_dtype=cdtype)
 
@@ -291,7 +407,7 @@ def decoder_dense(params: Params, config: WhisperConfig,
 
 def decoder_step(params: Params, config: WhisperConfig,
                  token: torch.Tensor, pos: torch.Tensor, kv: KVCache,
-                 xkv: CrossKV, lo: torch.Tensor, slot: int, split: int,
+                 xkv, lo: torch.Tensor, slot: int, split: int,
                  kv_group: int = 1, kv_prompt: Optional[KVCache] = None,
                  rowmap: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, KVCache]:
@@ -302,7 +418,8 @@ def decoder_step(params: Params, config: WhisperConfig,
     lengths are mask parameters (``lo``), never per-row write offsets.
     Self- and cross-attention run the decode-attention kernel over the
     full stacked caches with the layer as an index; ``kv_group`` rows share
-    one cross-KV row.
+    one cross-KV row.  An int8 ``xkv`` (QuantCrossKV) goes through
+    ``cross_attention_quant`` (K12 when kv_group * n_head <= 128, else K11).
 
     Split-cache beam mode (``kv_prompt`` given): the prompt K/V is stored
     once per beam group, ``kv_prompt`` (L, G, CP, S), and ``kv`` is the
@@ -318,7 +435,7 @@ def decoder_step(params: Params, config: WhisperConfig,
     n_head = config.n_text_head
     cdtype = param_compute_dtype(params)
     B = token.shape[0]
-    t_pad = xkv.k.shape[2]
+    quant_xkv = isinstance(xkv, QuantCrossKV)
     cross_lo = torch.full((B,), xkv.t_valid, dtype=torch.int32,
                           device=token.device)
     beam_group = B // kv_prompt.k.shape[1] if kv_prompt is not None else 1
@@ -328,9 +445,9 @@ def decoder_step(params: Params, config: WhisperConfig,
         layer = _layer(dec["blocks"], li)
         ln0, attn = layer["attn_ln"], layer["attn"]
         h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
-        q = _proj(h, attn["wq"], attn["bq"])
-        kv.k[li, :, slot] = _proj(h, attn["wk"]).to(kv.k.dtype)
-        kv.v[li, :, slot] = _proj(h, attn["wv"], attn["bv"]).to(kv.v.dtype)
+        q, k_new, v_new = _self_qkv(h, attn)
+        kv.k[li, :, slot] = k_new.to(kv.k.dtype)
+        kv.v[li, :, slot] = v_new.to(kv.v.dtype)
         if kv_prompt is not None:
             o = split_beam_attention(q, kv_prompt.k, kv_prompt.v, kv.k, kv.v,
                                      lo, slot + 1, n_head=n_head,
@@ -344,8 +461,15 @@ def decoder_step(params: Params, config: WhisperConfig,
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
         h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
         qc = _proj(h, cattn["wq"], cattn["bq"])
-        oc = decode_attention(qc, xkv.k, xkv.v, cross_lo, 0, split=t_pad,
-                              n_head=n_head, kv_group=kv_group, layer=li)
+        if quant_xkv:
+            oc = cross_attention_quant(qc, xkv.k_q, xkv.k_s, xkv.v_q,
+                                       xkv.v_s, n_head=n_head,
+                                       t_valid=cross_lo, kv_group=kv_group,
+                                       layer=li)
+        else:
+            oc = decode_attention(qc, xkv.k, xkv.v, cross_lo, 0,
+                                  split=xkv.t_pad, n_head=n_head,
+                                  kv_group=kv_group, layer=li)
         x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
                       out_dtype=cdtype)
 

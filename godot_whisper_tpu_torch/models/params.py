@@ -5,7 +5,10 @@ The layout is the JAX package's, so tests compare like with like:
 
 - per-layer weights are stacked on a leading layer axis;
 - matmul weights are ``(in, out)`` for ``x @ W``, in the compute dtype;
-- LayerNorm scales and biases, biases and positional embeddings stay f32.
+- LayerNorm scales and biases, biases and positional embeddings stay f32;
+- a quantized decoder (models/quant.py) holds ``QuantTensor`` /
+  ``Quant4Tensor`` leaves (int8 or packed uint8 ``q``, f32 ``s``), which the
+  converters carry across bit for bit.
 
 One difference: conv stem kernels are PyTorch's ``(out, in, width)``
 (``torch.nn.functional.conv1d``), where the JAX package keeps ``(width, in,
@@ -20,13 +23,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops.qmatmul import QUANT_TYPES, Quant4Tensor, QuantTensor
 from ..runtime.device import resolve_device
 from .config import WhisperConfig
 
 Params = Dict[str, Any]
 
 # Leaf keys that stay float32 under any compute dtype.
-_F32_KEYS = {"g", "b", "bq", "bv", "bo", "b0", "b1", "pos_embed"}
+_F32_KEYS = {"g", "b", "bq", "bv", "bo", "b0", "b1", "bqkv", "pos_embed"}
 _CONV_KEYS = {("encoder", "conv1", "w"), ("encoder", "conv2", "w")}
 
 
@@ -38,9 +42,10 @@ def _map(tree, fn, path=()):
 
 def cast_params(params: Params, compute_dtype) -> Params:
     """Matmul weights -> compute_dtype; norms, biases and positional
-    embeddings -> float32."""
-    return _map(params, lambda t, path: t.to(
-        torch.float32 if path[-1] in _F32_KEYS else compute_dtype))
+    embeddings -> float32; quantized weights stay as they are."""
+    return _map(params, lambda t, path: t if isinstance(t, QUANT_TYPES)
+                else t.to(torch.float32 if path[-1] in _F32_KEYS
+                          else compute_dtype))
 
 
 def _numpy_to_torch(a) -> torch.Tensor:
@@ -56,8 +61,14 @@ def params_from_jax(tree: Params) -> Params:
     """Convert the JAX package's parameter tree (leaves as numpy arrays,
     e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
     tree of CPU tensors, bit for bit: dtypes are kept, conv kernels
-    transposed from ``(width, in, out)`` to ``(out, in, width)``."""
+    transposed from ``(width, in, out)`` to ``(out, in, width)``, and the
+    JAX package's quantized leaves (NamedTuples ``(q, s)``) become
+    ``QuantTensor`` (int8 ``q``) or ``Quant4Tensor`` (uint8 ``q``)."""
     def leaf(a, path):
+        if getattr(a, "_fields", None) == ("q", "s"):
+            q, s = _numpy_to_torch(a.q), _numpy_to_torch(a.s)
+            return (Quant4Tensor if q.dtype == torch.uint8
+                    else QuantTensor)(q, s)
         t = _numpy_to_torch(a)
         if path in _CONV_KEYS:
             t = t.permute(2, 1, 0).contiguous()
@@ -67,8 +78,12 @@ def params_from_jax(tree: Params) -> Params:
 
 def params_to_numpy(params: Params) -> Params:
     """The port's tree back in the JAX package's layout as numpy arrays
-    (bf16 leaves widened to float32, which is exact)."""
+    (bf16 leaves widened to float32, which is exact; quantized leaves as
+    their container type holding numpy ``q`` and ``s``)."""
     def leaf(t, path):
+        if isinstance(t, QUANT_TYPES):
+            return type(t)(*(x.detach().cpu().contiguous().numpy()
+                             for x in t))
         if path in _CONV_KEYS:
             t = t.permute(2, 1, 0)
         if t.dtype == torch.bfloat16:

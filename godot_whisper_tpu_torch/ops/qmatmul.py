@@ -1,0 +1,231 @@
+"""K9/K10: weight-only quantized matmuls (csrc/qmatmul.cu) and their plain
+versions, with the int8 / int4 weight containers.
+
+Counterpart of the JAX package's ``ops/qmatmul.py``: ``quant_matmul`` (TPU
+kernel ``_qmm_kernel``, int8 weights with per-output-channel f32 scales) and
+``quant_matmul4`` (TPU kernel ``_q4mm_kernel``, int4 weights nibble-packed
+along the contraction axis with f32 scales per group of rows).  Decode reads
+every decoder weight once per step, so the weight bytes bound it; storing
+them in 8 or 4 bits halves or quarters that read, as long as the kernel turns
+them into bf16 on chip and never writes a dequantized copy to device memory.
+
+Layouts (the JAX package's):
+
+- ``io``: int8 weight (S_in, O_out), scales (O,): ``x @ W`` projections;
+- ``oi``: int8 weight (O_out, S_in), scales (O,): the token embedding (V, S),
+  whose one int8 buffer serves the embedding gather and the logits;
+- int4 (``Quant4Tensor``): q (S/2, O) uint8, s (S/G, O) f32.  Within group
+  g, byte row r holds weight row gG + r in its low nibble and gG + G/2 + r in
+  its high nibble, each stored +8 in [0, 15].
+
+Both containers are NamedTuples whose ``[i]`` is tuple indexing, so code
+that slices per-layer leaves must call ``.layer(li)`` (``qlayer``), never
+``[li]``.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import NamedTuple
+
+import torch
+
+from . import kernels as K
+
+
+class QuantTensor(NamedTuple):
+    """Symmetric per-channel int8: ``dequant = q * s`` with ``s`` broadcast
+    along the one reduced axis (the contraction axis)."""
+    q: torch.Tensor  # int8, full shape
+    s: torch.Tensor  # float32, q.shape without the reduced axis
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):  # dtype of the dequantized value
+        return torch.float32
+
+    def layer(self, li: int) -> "QuantTensor":
+        return QuantTensor(self.q[li], self.s[li])
+
+    def to(self, device) -> "QuantTensor":
+        return QuantTensor(self.q.to(device), self.s.to(device))
+
+
+class Quant4Tensor(NamedTuple):
+    """Group-wise symmetric int4 for the ``io`` layout, logical weight
+    (..., S, O): q (..., S/2, O) uint8 nibble-packed, s (..., S/G, O) f32."""
+    q: torch.Tensor
+    s: torch.Tensor
+
+    @property
+    def group(self) -> int:
+        return 2 * self.q.shape[-2] // self.s.shape[-2]
+
+    @property
+    def shape(self):
+        return (*self.q.shape[:-2], 2 * self.q.shape[-2], self.q.shape[-1])
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    def layer(self, li: int) -> "Quant4Tensor":
+        return Quant4Tensor(self.q[li], self.s[li])
+
+    def to(self, device) -> "Quant4Tensor":
+        return Quant4Tensor(self.q.to(device), self.s.to(device))
+
+
+QUANT_TYPES = (QuantTensor, Quant4Tensor)
+
+
+def qlayer(v, li: int):
+    """Layer ``li`` of a stacked leaf: a tensor's ``[li]`` or a quant
+    container's ``.layer(li)``."""
+    return v.layer(li) if isinstance(v, QUANT_TYPES) else v[li]
+
+
+def reduced_axis(qt: QuantTensor) -> int:
+    """Which axis of ``q`` the scales were reduced over (shape diff)."""
+    qs, ss = list(qt.q.shape), list(qt.s.shape)
+    for i in range(len(qs)):
+        if qs[:i] + qs[i + 1:] == ss:
+            return i
+    raise ValueError(f"scale shape {ss} does not match quant shape {qs}")
+
+
+def quantize_tensor(w: torch.Tensor, *, reduce_axis: int) -> QuantTensor:
+    """Symmetric absmax int8, scales per channel of every axis except
+    ``reduce_axis``; the JAX package's rounding points (f32 scale clamped at
+    1e-12, round half to even)."""
+    wf = w.float()
+    s = torch.clamp_min(wf.abs().amax(dim=reduce_axis) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(wf / s.unsqueeze(reduce_axis)), -127, 127)
+    return QuantTensor(q=q.to(torch.int8).contiguous(), s=s.contiguous())
+
+
+def dequantize(qt: QuantTensor) -> torch.Tensor:
+    return qt.q.float() * qt.s.unsqueeze(reduced_axis(qt))
+
+
+def quantize_tensor4(w: torch.Tensor, *, group: int = 128) -> Quant4Tensor:
+    """Symmetric absmax int4 over groups of ``group`` rows of the
+    contraction axis (axis -2 of an (..., S, O) weight)."""
+    wf = w.float()
+    *lead, S, O = wf.shape
+    if S % group or group % 2:
+        raise ValueError(f"contraction dim {S} not divisible by group {group}")
+    g = wf.reshape(*lead, S // group, group, O)
+    s = torch.clamp_min(g.abs().amax(dim=-2) / 7.0, 1e-12)   # (..., S/G, O)
+    q = torch.clamp(torch.round(g / s.unsqueeze(-2)), -8, 7).to(torch.int32)
+    q = q + 8
+    lo, hi = q[..., :group // 2, :], q[..., group // 2:, :]
+    packed = (lo | (hi << 4)).to(torch.uint8)
+    return Quant4Tensor(q=packed.reshape(*lead, S // 2, O), s=s)
+
+
+def _unpack4(q: torch.Tensor, n_g: int) -> torch.Tensor:
+    """(..., S/2, O) packed -> (..., n_g, G, O) int32 in [-8, 7]."""
+    *lead, S2, O = q.shape
+    p = q.reshape(*lead, n_g, S2 // n_g, O).to(torch.int32)
+    return torch.cat([p & 0xF, p >> 4], dim=-2) - 8
+
+
+def dequantize4(qt: Quant4Tensor) -> torch.Tensor:
+    *lead, S2, O = qt.q.shape
+    n_g = qt.s.shape[-2]
+    w = _unpack4(qt.q, n_g).float() * qt.s.unsqueeze(-2)
+    return w.reshape(*lead, 2 * S2, O)
+
+
+# ------------------------------------------------------------- plain versions
+def quant_matmul_plain(x: torch.Tensor, qt: QuantTensor, *,
+                       layout: str = "io") -> torch.Tensor:
+    """The JAX package's CPU branch: bf16 x against the int8 weight widened
+    (exactly) to float, f32 accumulation, then the f32 column scales."""
+    xb = x.to(torch.bfloat16).float().reshape(-1, x.shape[-1])
+    w = qt.q.float()
+    y = xb @ (w.t() if layout == "oi" else w)
+    return (y * qt.s[None, :]).reshape(*x.shape[:-1], y.shape[-1])
+
+
+def quant_matmul4_plain(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
+    """The JAX package's CPU branch: per group an f32 partial product of
+    bf16 x and the exact integer weights, times the f32 group scales, summed
+    over groups (never a bf16-rounded q * s)."""
+    S = x.shape[-1]
+    O = qt.q.shape[-1]
+    n_g = qt.s.shape[-2]
+    group = S // n_g
+    xb = x.to(torch.bfloat16).float().reshape(-1, n_g, group)
+    w = _unpack4(qt.q, n_g).float()                         # (n_g, G, O)
+    part = torch.einsum("bgk,gko->bgo", xb, w)
+    return (part * qt.s[None]).sum(dim=1).reshape(*x.shape[:-1], O)
+
+
+# ------------------------------------------------------------------ wrappers
+def _launch(name: str, layout: int, x2: torch.Tensor, qt, out: torch.Tensor,
+            group: int) -> None:
+    M, S = x2.shape
+    O = out.shape[1]
+    fn = K.entry("qmatmul", "gwt_qmatmul",
+                 (K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.P))
+    K.launch(fn, name, x2.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(),
+             out.data_ptr(), M, S, O, layout, group, K.stream_ptr(x2.device))
+
+
+def quant_matmul(x: torch.Tensor, qt: QuantTensor, *,
+                 layout: str = "io") -> torch.Tensor:
+    """``x (..., S) @ QuantTensor -> (..., O)`` float32.  layout "io": q
+    (S, O); "oi": q (O, S); scales (O,).  CUDA tensors launch
+    csrc/qmatmul.cu, CPU tensors take the plain version."""
+    if layout not in ("io", "oi"):
+        raise ValueError(f"layout must be 'io' or 'oi', got {layout!r}")
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, qt, layout=layout)
+    S = x.shape[-1]
+    x2 = x.reshape(-1, S).to(torch.bfloat16).contiguous()
+    K.require_cuda("quant_matmul", x2, qt.q, qt.s)
+    oi = layout == "oi"
+    O = qt.q.shape[0] if oi else qt.q.shape[1]
+    if (qt.q.dtype != torch.int8 or qt.q.dim() != 2
+            or qt.q.shape[1 if oi else 0] != S or qt.s.dtype != torch.float32
+            or tuple(qt.s.shape) != (O,)):
+        raise ValueError("quant_matmul: q int8 (S, O) for 'io' or (O, S) for "
+                         "'oi' with S = x.shape[-1], s float32 (O,)")
+    out = torch.empty((x2.shape[0], O), dtype=torch.float32, device=x.device)
+    if x2.shape[0]:
+        _launch("gwt_qmatmul[int8]", 1 if oi else 0, x2, qt, out, 0)
+        quant_matmul.launches += 1
+        quant_matmul.layout_launches[layout] += 1
+    return out.reshape(*x.shape[:-1], O)
+
+
+def quant_matmul4(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
+    """``x (..., S) @ Quant4Tensor (S, O) -> (..., O)`` float32.  CUDA
+    tensors launch csrc/qmatmul.cu, CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return quant_matmul4_plain(x, qt)
+    S = x.shape[-1]
+    x2 = x.reshape(-1, S).to(torch.bfloat16).contiguous()
+    K.require_cuda("quant_matmul4", x2, qt.q, qt.s)
+    O = qt.q.shape[-1]
+    group = qt.group
+    if (qt.q.dtype != torch.uint8 or qt.q.dim() != 2 or 2 * qt.q.shape[0] != S
+            or qt.s.dtype != torch.float32
+            or tuple(qt.s.shape) != (S // group, O) or group % 64):
+        raise ValueError("quant_matmul4: q uint8 (S/2, O), s float32 (S/G, O) "
+                         "with S = x.shape[-1] and G a multiple of 64")
+    out = torch.empty((x2.shape[0], O), dtype=torch.float32, device=x.device)
+    if x2.shape[0]:
+        _launch("gwt_qmatmul[int4]", 2, x2, qt, out, group)
+        quant_matmul4.launches += 1
+    return out.reshape(*x.shape[:-1], O)
+
+
+quant_matmul.launches = 0
+quant_matmul.layout_launches = collections.Counter()  # "io" / "oi"
+quant_matmul4.launches = 0

@@ -2,18 +2,23 @@
 """Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
 
     python3 profile_torch_main_path.py [--model tiny.en] [--seconds 34]
-                                       [--beam K]
+                                       [--beam K] [--quantize int8|int4]
+                                       [--cross-kv-int8]
 
 Drives ``WhisperContext.synthetic(model, seed=0)`` (bf16) ``.full(
 TranscribeParams(), audio)`` on the deterministic test clip (with
-``--beam K``: ``TranscribeParams(strategy=BEAM_SEARCH, beam_size=K)``):
+``--beam K``: ``TranscribeParams(strategy=BEAM_SEARCH, beam_size=K)``;
+``--quantize`` stores the decoder weights int8 / int4 (K9 / K10),
+``--cross-kv-int8`` the cross-attention K/V int8 (K12 / K11)):
 
 1. one warm-up run (kernel build and load, cuBLAS and allocator warm-up);
 2. three timed runs (host clock around work that ends in a synchronize):
    median wall, audio-seconds per second, decode steps, wall per step;
 3. one run under ``torch.profiler`` (CPU + CUDA activities): total device
    time of all kernels and copies, device time and calls per kernel name,
-   kernel launches per decode step.  The profiler slows the host, not the
+   kernel launches per decode step, and the quantized kernels' launches
+   per decode step (K9 and K10 count the per-window projections too).
+   The profiler slows the host, not the
    kernels, so the device busy share is that device time over the median
    wall of the unprofiled runs (the rest is the host driving the loop);
 4. stage times with CUDA synchronizes around each stage: mel, one window's
@@ -58,6 +63,10 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=34.0)
     ap.add_argument("--beam", type=int, default=0,
                     help="beam size (0: the default greedy ladder)")
+    ap.add_argument("--quantize", choices=("int8", "int4", "int8_embed"),
+                    default=None, help="decoder weight quantization")
+    ap.add_argument("--cross-kv-int8", action="store_true",
+                    help="int8 cross-attention K/V")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -65,16 +74,22 @@ def main() -> int:
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
     from godot_whisper_tpu_torch.decode.window import WindowDecoder
-    from godot_whisper_tpu_torch.models.model import cross_kv, encoder_forward
+    from godot_whisper_tpu_torch.models.model import (cross_kv,
+                                                      encoder_forward,
+                                                      quantize_cross_kv)
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sync = torch.cuda.synchronize
     audio = frozen_audio(args.seconds)
-    ctx = gt.WhisperContext.synthetic(args.model, seed=0)
+    ctx = gt.WhisperContext.synthetic(args.model, seed=0,
+                                      quantize=args.quantize)
     tp = (gt.TranscribeParams(strategy=gt.SamplingStrategy.BEAM_SEARCH,
-                              beam_size=args.beam) if args.beam
-          else gt.TranscribeParams())
+                              beam_size=args.beam,
+                              cross_kv_int8=args.cross_kv_int8) if args.beam
+          else gt.TranscribeParams(cross_kv_int8=args.cross_kv_int8))
     ctx.full(tp, audio)                                   # warm-up
 
     walls, steps = [], 0
@@ -89,6 +104,10 @@ def main() -> int:
     wall = float(np.median(walls))
 
     ctx.pipeline.timings.reset()
+    quant = (Q.quant_matmul, Q.quant_matmul4, CA.xattn_q_packed,
+             CA.xattn_q_wide)
+    for fn in quant:
+        fn.launches = 0
     from torch.profiler import ProfilerActivity, profile
     sync()
     t0 = time.perf_counter()
@@ -97,6 +116,8 @@ def main() -> int:
         ctx.full(tp, audio)
         sync()
     prof_wall = time.perf_counter() - t0
+    per_step = {fn.__name__: fn.launches / max(ctx.timings.n_decode, 1)
+                for fn in quant}
     rows = []
     for e in prof.key_averages():
         us = _kernel_us(e)
@@ -121,8 +142,11 @@ def main() -> int:
     mel_ms, _ = timed(lambda: pipe.mel.device(audio))
     mel, _ = pipe.mel.device(audio)
     win = mel[:, :3000].T[None].contiguous()
-    enc_ms, xkv = timed(lambda: cross_kv(params, cfg, encoder_forward(
-        params, cfg, win)))
+    def encode():
+        x = cross_kv(params, cfg, encoder_forward(params, cfg, win))
+        return quantize_cross_kv(x, cfg.n_text_head) if tp.cross_kv_int8 \
+            else x
+    enc_ms, xkv = timed(encode)
     nd = max(tp.n_decoders_at(t) for t in tp.temperatures())
     mode = (dict(strategy="beam", beam_size=args.beam, n_decoders=args.beam)
             if args.beam else dict(n_decoders=nd))
@@ -142,8 +166,10 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
     what = f"beam {args.beam}" if args.beam else "greedy"
-    print(f"main path {args.model} bf16 {what}, {args.seconds} s audio: wall "
-          f"{[round(w, 4) for w in walls]} s (median {wall:.4f}), "
+    prec = (f"{args.quantize or 'bf16'} weights, "
+            f"{'int8' if args.cross_kv_int8 else 'bf16'} cross-KV")
+    print(f"main path {args.model} {prec} {what}, {args.seconds} s audio: "
+          f"wall {[round(w, 4) for w in walls]} s (median {wall:.4f}), "
           f"{args.seconds / wall:.2f} audio-s/s, {steps} decode steps, "
           f"{wall / max(steps, 1) * 1e3:.3f} ms wall per step")
     print(f"profiled run: wall {prof_wall:.4f} s (profiler-slowed host), "
@@ -152,6 +178,8 @@ def main() -> int:
           f"{kernel_calls} kernels and copies, "
           f"{kernel_calls / max(ctx.timings.n_decode, 1):.1f} per decode "
           "step")
+    print("quantized kernel launches per decode step: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()))
     print("top device time by kernel (us total, calls, name):")
     for us, n, key in rows[:15]:
         print(f"  {us:12.1f} {n:7d}  {key[:100]}")
@@ -161,6 +189,8 @@ def main() -> int:
           f"{res.n_steps} steps")
     print(json.dumps({
         "card": smi, "model": args.model, "beam": args.beam,
+        "quantize": args.quantize, "cross_kv_int8": args.cross_kv_int8,
+        "quant_launches_per_step": per_step,
         "audio_s": args.seconds,
         "wall_s": walls, "steps": steps,
         "audio_s_per_s": args.seconds / wall,

@@ -319,3 +319,104 @@ def test_beam5_golden_through_kernels(cuda):
     assert res.seek_delta.tolist() == want["seek_delta"]
     assert [round(float(x), 3) for x in res.sum_logprobs_all] == \
         want["sum_logprobs"]
+
+
+# ------------------------------------------------ quantized kernels K9-K12 --
+def _qmm_case(gen, cuda, m, s, o):
+    x = torch.randn(m, s, generator=gen).to(cuda, torch.bfloat16)
+    w = torch.randn(s, o, generator=gen) * 0.02
+    return x, w
+
+
+def _qmm_within(got, want, x, w_abs):
+    """f32 sums in another order (tensor-core accumulation included) stay
+    within 1e-5 of each element's sum of |terms|."""
+    bound = x.float().abs() @ w_abs
+    return bool(((got - want).abs() <= 1e-5 * bound + 1e-7).all())
+
+
+@pytest.mark.parametrize("layout,m,s,o", [
+    ("io", 5, 384, 1152),      # tiny.en fused wqkv, one decode step
+    ("io", 1500, 384, 384),    # tiny.en cross-K projection (tensor cores)
+    ("oi", 5, 384, 51864),     # tiny.en logits against the int8 embedding
+    ("io", 8, 1280, 3840),     # large-v3 wqkv at beam 8
+    ("io", 1500, 1280, 1280),  # large-v3 cross-K projection
+    ("oi", 8, 1280, 51866),    # large-v3 logits
+    ("io", 3, 96, 200),        # ragged: no full column quad of blocks
+    ("oi", 40, 128, 200),      # tensor-core tiles, oi, ragged O and M
+    ("io", 13, 384, 384),      # two row passes of the decode kernel
+])
+def test_quant_matmul_kernel_matches_plain(cuda, layout, m, s, o):
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(6)
+    x, w = _qmm_case(gen, cuda, m, s, o)
+    qt = Q.quantize_tensor((w.t() if layout == "oi" else w).to(cuda),
+                           reduce_axis=1 if layout == "oi" else 0)
+    before = Q.quant_matmul.launches
+    got = Q.quant_matmul(x, qt, layout=layout)
+    torch.cuda.synchronize()
+    assert Q.quant_matmul.launches == before + 1
+    want = Q.quant_matmul_plain(x, qt, layout=layout)
+    w_abs = (Q.dequantize(qt).abs().t() if layout == "oi"
+             else Q.dequantize(qt).abs())
+    assert _qmm_within(got, want, x, w_abs)
+
+
+@pytest.mark.parametrize("m,s,o", [
+    (5, 384, 1152), (5, 1536, 384), (1500, 384, 384), (8, 5120, 1280),
+    (1500, 1280, 1280), (3, 256, 200), (40, 256, 200),
+])
+def test_quant_matmul4_kernel_matches_plain(cuda, m, s, o):
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(7)
+    x, w = _qmm_case(gen, cuda, m, s, o)
+    qt = Q.quantize_tensor4(w.to(cuda))
+    before = Q.quant_matmul4.launches
+    got = Q.quant_matmul4(x, qt)
+    torch.cuda.synchronize()
+    assert Q.quant_matmul4.launches == before + 1
+    want = Q.quant_matmul4_plain(x, qt)
+    assert _qmm_within(got, want, x, Q.dequantize4(qt).abs())
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["exact", "w8a8"])
+@pytest.mark.parametrize("s,h,kg,g,t,lo,l", [
+    (384, 6, 5, 1, 1536, [1500] * 5, 4),       # tiny.en best_of / beam 5
+    (384, 6, 1, 2, 1536, [1500, 1500], 4),     # tiny.en kv_group 1
+    (1280, 20, 5, 1, 1536, [1500] * 5, 3),     # large-v3 K12: 100 lanes
+    (1280, 20, 8, 1, 1536, [1500] * 8, 3),     # large-v3 beam 8: K11
+    (512, 32, 5, 2, 256, [100] * 5 + [77] * 5, 2),  # K11, head dim 16
+    (128, 4, 2, 2, 768, [700, 511, 3, 256], 2),     # ragged lo, blocks of 256
+])
+def test_cross_attention_quant_kernel_matches_plain(cuda, w8a8, s, h, kg, g,
+                                                    t, lo, l):
+    """K11/K12 against the plain version (the TPU kernels' arithmetic).
+    Exact mode: 1e-4.  W8A8: exp() on the card may flip one rounding of
+    127 p; the limit allows one flip per (row, head) (``w8a8_flip_limit``)
+    on top of 1e-4.  The wide route has exact mode only."""
+    from godot_whisper_tpu_torch.models.model import CrossKV, \
+        quantize_cross_kv
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    gen = torch.Generator().manual_seed(8)
+    b = g * kg
+    k = torch.randn(l, g, t, s, generator=gen).to(cuda, torch.bfloat16)
+    v = torch.randn(l, g, t, s, generator=gen).to(cuda, torch.bfloat16)
+    x = quantize_cross_kv(CrossKV(k, v, t), h)
+    q = torch.randn(b, s, generator=gen).to(cuda, torch.bfloat16)
+    lo_t = torch.tensor(lo, dtype=torch.int32, device=cuda)
+    kw = dict(n_head=h, kv_group=kg, layer=l - 1)
+    packed = CA.is_packed(h, kg)
+    counter = CA.xattn_q_packed if packed else CA.xattn_q_wide
+    before = counter.launches
+    got = CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                   t_valid=lo_t, w8a8=w8a8, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = CA.cross_attention_quant_plain(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                          lo_t, w8a8=w8a8, **kw)
+    err = (got - want).abs()
+    if w8a8 and packed:
+        tol = 1e-4 + CA.w8a8_flip_limit(q, x.k_q, x.k_s, x.v_s, lo_t, **kw)
+        assert bool((err <= tol).all())
+    else:
+        assert float(err.max()) < 1e-4

@@ -218,7 +218,6 @@ def test_pipeline_helpers_need_a_device():
 
 
 @pytest.mark.parametrize("kw,base", [
-    (dict(cross_kv_int8=True), "tiny.en"),
     (dict(grammar_rules="root ::= \"a\""), "tiny.en"),
     (dict(logits_filter_callback=lambda *a: None), "tiny.en"),
     (dict(language="auto"), "tiny"),
