@@ -633,9 +633,10 @@ def check_quant_kernels(torch, rng):
                 kg, h, 1536, d)
             qd = q.view(kg, h, 1, d)
             mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
-            # int8 K/V and the bf16 k_s rows of the 1500 valid slots, v_s,
-            # q in, f32 out
-            nbytes = (2 * 1500 * s + 1500 * 128 * 2 + 128 * 4
+            # int8 K/V and the n_head bf16 k_s of the 1500 valid slots, the
+            # n_head f32 v_s, q and lo in, f32 out (the zero lanes of the
+            # padded scales are not needed)
+            nbytes = (2 * 1500 * s + 1500 * h * 2 + h * 4
                       + kg * s * 2 + kg * s * 4 + kg * 4)
             r = recs[key] = dict(
                 err=e_max, bound=bound(nbytes, 4 * kg * 1500 * s, PEAK_BF16),

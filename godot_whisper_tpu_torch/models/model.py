@@ -19,9 +19,10 @@ A quantized decoder (models/quant.py) carries ``QuantTensor`` /
 one rounding to bf16), the self q/k/v projections are one fused ``wqkv``,
 and the embedding gather and logits read the int8 token embedding.
 
-bf16 rounding points follow the JAX package: every projection accumulates
-in f32, adds its f32 bias and rounds once to the compute dtype; LayerNorm
-and softmax run in f32.
+bf16 rounding points follow the JAX package as XLA compiles it: every
+projection accumulates in f32, adds its f32 bias and rounds once to the
+compute dtype; LayerNorm and softmax run in f32, and a LayerNorm inside a
+layer reads the unrounded f32 residual sum (``_residual``).
 
 Where the JAX package returns a fresh cache, ``decoder_dense`` and
 ``decoder_step`` write the new K/V rows INTO the cache they are given (a
@@ -114,6 +115,17 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return Fn.gelu(x, approximate="none")
 
 
+def _residual(x: torch.Tensor, p: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + p where a LayerNorm reads the sum: (the residual stream rounded
+    to x's dtype, the f32 sum for the LayerNorm).  The JAX package's
+    compiled layer hands its LayerNorm the unrounded f32 sum (XLA keeps
+    the excess precision of a bf16 add that feeds an f32 upcast) while the
+    residual stream it carries on is the rounded one."""
+    s = x.float() + p
+    return s.to(x.dtype), s
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked attention for the dense decoder passes.  q (B, Tq, H, D);
@@ -182,9 +194,10 @@ def encoder_forward(params: Params, config: WhisperConfig,
         o = flash_attention_bh(q, k, v,
                                t_valid=t_real if pad_native else None)
         o = o.reshape(b_sz, n_head, t, d).transpose(1, 2).reshape(b_sz, t, c)
-        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                   out_dtype=cdtype))
 
-        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
         h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
         x = (x + h).to(cdtype)
@@ -382,19 +395,20 @@ def decoder_dense(params: Params, config: WhisperConfig,
         kv.k[li, :, :T] = k_new.to(kv.k.dtype)
         kv.v[li, :, :T] = v_new.to(kv.v.dtype)
         o = attend(q, kv.k[li], kv.v[li], self_mask)
-        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                   out_dtype=cdtype))
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
-        h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
+        h = layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype)
         qc = _proj(h, cattn["wq"], cattn["bq"])
         xk, xv = (_dequant_xkv_layer(xkv, li, n_head) if quant_xkv
                   else (xkv.k[li], xkv.v[li]))
         oc = attend(qc, xk, xv, cross_mask)
-        x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
-                      out_dtype=cdtype)
+        x, xs = _residual(x, _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
+                                   out_dtype=cdtype))
 
         ln1, mlp = layer["mlp_ln"], layer["mlp"]
-        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
         h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
         x = (x + h).to(cdtype)
@@ -456,10 +470,11 @@ def decoder_step(params: Params, config: WhisperConfig,
         else:
             o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
                                  n_head=n_head, layer=li)
-        x = x + _proj(o.to(cdtype), attn["wo"], attn["bo"], out_dtype=cdtype)
+        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                   out_dtype=cdtype))
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
-        h = layer_norm(x, lnc["g"], lnc["b"]).to(cdtype)
+        h = layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype)
         qc = _proj(h, cattn["wq"], cattn["bq"])
         if quant_xkv:
             oc = cross_attention_quant(qc, xkv.k_q, xkv.k_s, xkv.v_q,
@@ -470,11 +485,11 @@ def decoder_step(params: Params, config: WhisperConfig,
             oc = decode_attention(qc, xkv.k, xkv.v, cross_lo, 0,
                                   split=xkv.t_pad, n_head=n_head,
                                   kv_group=kv_group, layer=li)
-        x = x + _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
-                      out_dtype=cdtype)
+        x, xs = _residual(x, _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
+                                   out_dtype=cdtype))
 
         ln1, mlp = layer["mlp_ln"], layer["mlp"]
-        h = layer_norm(x, ln1["g"], ln1["b"]).to(cdtype)
+        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
         h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
         x = (x + h).to(cdtype)

@@ -189,14 +189,11 @@ def cross_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
     """Single-query cross-attention against int8 merged-head K/V.
 
     q (B, S); k_q/v_q (L, B // kv_group, T, S) int8 with ``layer`` a host
-    int, or one layer (B // kv_group, T, S); k_s (.., T, 128) bf16; v_s
-    (.., 128) f32; t_valid (B,) int32.  ``w8a8`` None reads
-    ``w8a8_default()``; it applies to the packed kernel only.  CUDA tensors
-    launch csrc/cross_attn.cu (K12 when kv_group * n_head <= 128, else K11),
-    CPU tensors take the plain version.  Returns (B, S) f32."""
-    if k_q.dim() == 3:
-        k_q, k_s, v_q, v_s = k_q[None], k_s[None], v_q[None], v_s[None]
-        layer = 0
+    int; k_s (L, B // kv_group, T, 128) bf16; v_s (L, B // kv_group, 128)
+    f32; t_valid (B,) int32.  ``w8a8`` None reads ``w8a8_default()``; it
+    applies to the packed kernel only.  CUDA tensors launch
+    csrc/cross_attn.cu (K12 when kv_group * n_head <= 128, else K11), CPU
+    tensors take the plain version.  Returns (B, S) f32."""
     w8a8 = w8a8_default() if w8a8 is None else w8a8
     if q.device.type == "cpu":
         return cross_attention_quant_plain(q, k_q, k_s, v_q, v_s, t_valid,

@@ -240,7 +240,8 @@ def test_cross_attention_quant_plain_matches_float_oracle(w8a8, kg, H, D, T,
     q = rng.standard_normal((B, S)).astype(np.float32)
     k_q, k_s, v_q, v_s = _quant_kv(rng, G, T, H, D)
     got = CA.cross_attention_quant(
-        _t(q), _t(k_q), _bf16_t(k_s), _t(v_q), _t(v_s), n_head=H,
+        _t(q), _t(k_q)[None], _bf16_t(k_s)[None], _t(v_q)[None],
+        _t(v_s)[None], n_head=H,
         t_valid=torch.full((B,), tv, dtype=torch.int32), kv_group=kg,
         w8a8=w8a8).numpy()
     want = _oracle(q, k_q.astype(np.float64),
