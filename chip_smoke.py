@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
    K9 int8 matmul (io and oi, decode rows and the 1500-row cross-K/V
    projection), K10 int4 matmul, K11 / K12 int8 cross-attention (exact
-   and W8A8).
+   and W8A8).  And the long-context encoder attention K13 at phase 10's
+   shape and at large-v3 widths, f32 and bf16.
 3. golden -- the nano model (numpy seed 3, f32) on the card reproduces
    tests/golden/nano_decode.json["greedy"] and ["beam5"] (K6 + K7) and
    the clip scenarios "multiwindow" and "translate" of
@@ -42,6 +43,18 @@ Phases (any failure exits non-zero; no phase carries on past its own):
 8. wide quantized route -- phase 6's large-v3 widths with quantize="int4",
    cross_kv_int8 and beam 8 (8 x 20 heads > 128): K11, K10 and K8 must
    launch, K12 must not.
+9. file path -- phase 4's bf16 weights exported as an F32 ggml file (the
+   port's exporter), WhisperContext.from_file and from_buffer of it, each
+   .full(TranscribeParams(), 34 s): segments equal phase 4's token for
+   token.  Then the CLI in-process on a 44.1 kHz WAV with every output
+   writer and --max-len 40 (every file written and parsed), and a
+   multilingual tiny checkpoint with -l auto --detect-language (a language
+   printed).  Files go to a temporary directory.
+10. long audio context (K13) -- tiny.en widths at full depth with
+   n_audio_ctx 2000 (40 s windows), random weights exported as F16 and
+   loaded through from_file, .full(TranscribeParams(), 90 s), counters
+   zeroed just before: K13 must launch 4 times per window (4 audio
+   layers), K2 never; K1, K3/K4 and K5 must launch.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -49,11 +62,15 @@ the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -657,6 +674,65 @@ def check_quant_kernels(torch, rng):
     return recs
 
 
+def check_long_attention(torch, rng):
+    """K13 against its plain version (the same 512-key blocks and rounding
+    points) at phase 10's shape (tiny.en, n_audio_ctx 2000 padded to 2048)
+    and at large-v3 widths (20 heads; 160 = batch 8 x 20 heads), f32 and
+    bf16; then times of kernel, plain version and one SDPA call with a
+    boolean key mask (a yardstick; the port never calls it)."""
+    from godot_whisper_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = {}
+    T, D = 2048, 64
+    for bh, tv, tag in ((6, 2000, "tiny.en, n_audio_ctx 2000"),
+                        (20, 2048, "large-v3 widths"),
+                        (160, 2048, "large-v3 widths, batch 8")):
+        qf, kf, vf = (torch.from_numpy(rng.standard_normal((bh, T, D))
+                                       .astype(np.float32)).to(dev)
+                      for _ in range(3))
+        got = A.flash_attention_long(qf, kf, vf, t_valid=tv)
+        sync()
+        ef = float((got - A.attention_bh_blocked_plain(qf, kf, vf, tv))
+                   .abs().max())
+        q, k, v = (x.to(torch.bfloat16) for x in (qf, kf, vf))
+        got = A.flash_attention_long(q, k, v, t_valid=tv)
+        sync()
+        want = A.attention_bh_blocked_plain(q, k, v, tv)
+        err = (got.float() - want.float()).abs()
+        share = float((err / A.blocked_bf16_limit(q, k, v, want, tv)).max())
+        e_max = float(err.max())
+        log(f"K13 enc_attn_long [{tag}] ({bh}, {T}, {D}) t_valid {tv}: f32 "
+            f"max_abs_err {ef:.3e} (tol 1e-5: f32 sums in another order); "
+            f"bf16 max_abs_err {e_max:.3e}, worst share of the per-element "
+            f"tol {share:.3f} (tol one bf16 ulp + one flipped bf16 rounding "
+            "of p per row + 1e-5; must be <= 1)")
+        if not (ef < 1e-5 and share <= 1.0):
+            fail(f"K13 [{tag}] disagrees with its plain version")
+        mask = (torch.arange(T, device=dev) < tv)[None, None, None]
+        q4, k4, v4 = (x.view(1, bh, T, D) for x in (q, k, v))
+        r = dict(err=e_max,
+                 bound=bound(4 * bh * T * D * 2, 4 * bh * tv * tv * D,
+                             PEAK_BF16),
+                 ms=time_ms(torch, lambda: A.flash_attention_long(
+                     q, k, v, t_valid=tv), reps=10),
+                 plain_ms=time_ms(torch, lambda: A.attention_bh_blocked_plain(
+                     q, k, v, tv), reps=10),
+                 library_ms=time_ms(torch, lambda: sdpa(q4, k4, v4,
+                                                        attn_mask=mask),
+                                    reps=10))
+        log(f"  timed bf16: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
+        if bh == 6:
+            recs["enc_attn_long"] = r
+        del qf, kf, vf, q, k, v, got, want, err
+        torch.cuda.empty_cache()
+    return recs
+
+
 # --------------------------------------------------------------- phase 3 --
 def check_goldens(torch, gt):
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -748,6 +824,134 @@ def check_goldens(torch, gt):
                  f"{want_clip[name]}")
 
 
+# ---------------------------------------------------------- phases 9-10 --
+def seg_view(segs):
+    return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in segs]
+
+
+def check_file_path(torch, gt, ctx, segs4, drive, tmp):
+    """Phase 9: phase 4's weights through a ggml file, from_file and
+    from_buffer, then the CLI (every writer, a 44.1 kHz WAV) and language
+    detection on a multilingual checkpoint."""
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.audio.tokenizer import synthetic_vocab
+    from godot_whisper_tpu_torch.audio.wav import write_wav
+    from godot_whisper_tpu_torch.cli.main import main as cli_main
+    from godot_whisper_tpu_torch.models import loader_ggml
+    from godot_whisper_tpu_torch.models.export_ggml import export_checkpoint
+
+    cfg = ctx.config
+    path = os.path.join(tmp, "tiny.en-f32.bin")
+    t0 = time.perf_counter()
+    export_checkpoint(path, ctx.pipeline.params, cfg,
+                      mel_filterbank(cfg.n_mels), synthetic_vocab(cfg),
+                      ttype=loader_ggml.GGML_TYPE_F32)
+    log(f"file path: phase 4's weights exported as F32 ggml "
+        f"({os.path.getsize(path) / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    want = seg_view(segs4)
+    for what, make in (
+            ("from_file", lambda: gt.WhisperContext.from_file(path)),
+            ("from_buffer", lambda: gt.WhisperContext.from_buffer(
+                open(path, "rb").read()))):
+        c = make()
+        t_load = c.timings.t_load_us
+        _, _, segs = drive(f"file path: {what}, tiny.en F32 file, bf16 "
+                           "compute, 34.0 s audio", c, gt.TranscribeParams(),
+                           34.0)
+        log(f"file path: {what} load {t_load / 1e3:.1f} ms; {len(segs)} "
+            f"segments, equal to phase 4's token for token: "
+            f"{seg_view(segs) == want}")
+        if seg_view(segs) != want:
+            fail(f"{what} segments differ from phase 4's: "
+                 f"{seg_view(segs)[:2]} vs {want[:2]}")
+        del c
+
+    # the CLI in-process, every writer, a WAV that must be resampled
+    sr = 44100
+    t = np.arange(int(34.0 * sr)) / sr
+    x = (0.3 * np.sin(2 * np.pi * (220.0 + 60 * np.sin(
+        2 * np.pi * 0.07 * t)) * t)
+        + 0.2 * np.sin(2 * np.pi * 447.0 * t)
+        * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t))).astype(np.float32)
+    wav = os.path.join(tmp, "clip-44k.wav")
+    write_wav(wav, x, sr)
+    t0 = time.perf_counter()
+    rc = cli_main(["-m", path, wav, "-otxt", "-osrt", "-ovtt", "-oj", "-ojf",
+                   "-owts", "--max-len", "40", "--no-prints"])
+    wall = time.perf_counter() - t0
+    stamp = r"\d\d:\d\d:\d\d[.,]\d\d\d --> \d\d:\d\d:\d\d[.,]\d\d\d"
+    txt = open(wav + ".txt").read()
+    srt = [b.split("\n") for b in open(wav + ".srt").read().strip()
+           .split("\n\n")]
+    vtt = open(wav + ".vtt").read()
+    js = json.load(open(wav + ".json"))
+    wts = open(wav + ".wts").read()
+    segs = js["transcription"]
+    ok = (rc == 0 and txt.strip() != ""
+          and all(len(b) >= 3 and b[0].isdigit() and re.fullmatch(stamp, b[1])
+                  for b in srt)
+          and vtt.startswith("WEBVTT") and len(re.findall(stamp, vtt))
+          == len(segs) == len(srt) > 0
+          and all(s["tokens"] and all("timestamps" in tk
+                                      for tk in s["tokens"]) for s in segs)
+          and wts.startswith("#!/bin/bash") and "ffmpeg" in wts)
+    log(f"CLI: 34.0 s WAV at 44.1 kHz (resampled), -otxt -osrt -ovtt -oj -ojf "
+        f"-owts --max-len 40: rc {rc}, {wall:.2f} s, {len(segs)} segments "
+        f"(longest text {max(len(s['text'].encode()) for s in segs)} "
+        f"bytes), every file parsed: {ok}")
+    if not ok:
+        fail("the CLI's outputs are missing or do not parse")
+
+    mcfg = gt.get_config("tiny")
+    mctx = gt.WhisperContext.synthetic("tiny", seed=0)
+    mpath = os.path.join(tmp, "tiny-f16.bin")
+    export_checkpoint(mpath, mctx.pipeline.params, mcfg,
+                      mel_filterbank(mcfg.n_mels), synthetic_vocab(mcfg))
+    del mctx
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["-m", mpath, wav, "-l", "auto", "--detect-language",
+                       "--no-prints"])
+    said = out.getvalue().strip()
+    log(f"CLI: multilingual tiny (F16 file), -l auto --detect-language: rc "
+        f"{rc}, printed {said!r}")
+    if rc != 0 or not re.fullmatch(r"detected language: \w+ \(.+\)", said):
+        fail("language detection printed no language")
+
+
+def check_long_context(torch, gt, drive, tmp):
+    """Phase 10: a tiny.en-width checkpoint with n_audio_ctx 2000 (40 s
+    windows) from an F16 file; its encoder attention must run through K13,
+    4 launches (one per audio layer) per window, and never through K2."""
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.audio.tokenizer import synthetic_vocab
+    from godot_whisper_tpu_torch.models.export_ggml import export_checkpoint
+
+    cfg = gt.get_config("tiny.en").replace(n_audio_ctx=2000)
+    path = os.path.join(tmp, "tiny.en-ctx2000-f16.bin")
+    export_checkpoint(path, gt.init_params(cfg, seed=0, device="cuda"), cfg,
+                      mel_filterbank(cfg.n_mels), synthetic_vocab(cfg))
+    lctx = gt.WhisperContext.from_file(path)
+    c = lctx.config
+    n, grp, segs = drive(
+        f"long audio context: {c.name} checkpoint (S {c.n_audio_state}, "
+        f"{c.n_audio_head} heads, {c.n_audio_layer} + {c.n_text_layer} "
+        f"layers, V {c.n_vocab}, n_audio_ctx {c.n_audio_ctx}), F16 file, "
+        "bf16 compute, 90.0 s audio", lctx, gt.TranscribeParams(), 90.0)
+    n_win = lctx.timings.n_encode
+    log(f"long audio context: {n_win} windows, K13 launches "
+        f"{n['flash_attention_long']} (want {c.n_audio_layer} x {n_win}), "
+        f"K2 launches {n['flash_attention_bh']} (want 0)")
+    if not (n_win >= 1 and c.n_audio_ctx == 2000
+            and n["flash_attention_long"] == c.n_audio_layer * n_win
+            and n["flash_attention_bh"] == 0 and n["log_mel_raw"]
+            and n["fused_filter_sample"] and grp.get(1) and grp.get(5)):
+        fail("the long audio context did not run its encoder through K13 "
+             "alone, or a kernel of the path never launched")
+    return n
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -756,7 +960,8 @@ def main() -> int:
         return 2
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.ops import kernels
-    from godot_whisper_tpu_torch.ops.attention import flash_attention_bh
+    from godot_whisper_tpu_torch.ops.attention import (flash_attention_bh,
+                                                       flash_attention_long)
     from godot_whisper_tpu_torch.ops.cross_attention import (xattn_q_packed,
                                                              xattn_q_wide)
     from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
@@ -790,6 +995,7 @@ def main() -> int:
     recs = check_kernels(torch, gt, rng)
     recs.update(check_beam_kernels(torch, rng))
     recs.update(check_quant_kernels(torch, rng))
+    recs.update(check_long_attention(torch, rng))
 
     # ---- phase 3: goldens through the kernels
     check_goldens(torch, gt)
@@ -799,7 +1005,7 @@ def main() -> int:
     counters = (log_mel_raw, flash_attention_bh, decode_attention,
                 fused_filter_sample, fused_filter_topk, split_beam_attention,
                 reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
-                xattn_q_packed)
+                xattn_q_packed, flash_attention_long)
 
     def drive(what, c, tparams, audio_s):
         for fn in counters:
@@ -827,20 +1033,20 @@ def main() -> int:
                     0 <= t.id < c.config.n_vocab and np.isfinite(t.plog)
                     for t in s_.tokens)):
                 fail(f"malformed segment {s_}")
-        return n, grp
+        return n, grp, segs
 
     # ---- phase 4: the main path
     ctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
-    launches, groups = drive("main path: tiny.en bf16, 34.0 s audio", ctx,
-                             gt.TranscribeParams(), 34.0)
+    launches, groups, segs4 = drive("main path: tiny.en bf16, 34.0 s audio",
+                                    ctx, gt.TranscribeParams(), 34.0)
     if not all(launches[fn.__name__] for fn in counters[:4]) or not (
             groups.get(1) and groups.get(5)):
         fail("a kernel of the main path never launched")
 
     # ---- phase 5: the beam path (tiny.en, full width)
     beam = gt.SamplingStrategy.BEAM_SEARCH
-    n5, grp5 = drive("beam path: tiny.en bf16 beam 5, 34.0 s audio", ctx,
-                     gt.TranscribeParams(strategy=beam), 34.0)
+    n5, grp5, _ = drive("beam path: tiny.en bf16 beam 5, 34.0 s audio", ctx,
+                        gt.TranscribeParams(strategy=beam), 34.0)
     if not (n5["fused_filter_topk"] and n5["split_beam_attention"]
             and grp5.get(5) and n5["log_mel_raw"]
             and n5["flash_attention_bh"]):
@@ -851,11 +1057,11 @@ def main() -> int:
     wide = gt.get_config("large-v3").replace(n_audio_layer=2, n_text_layer=3)
     wctx = gt.WhisperContext.from_params(
         wide, gt.init_params(wide, seed=0, device="cuda"), device="cuda")
-    n6, grp6 = drive("wide beam route: large-v3 widths (S 1280, 20 heads, "
-                     "128 mels, V 51866) cut to 2 audio + 3 text layers, "
-                     "bf16, beam 8, 10.0 s audio", wctx,
-                     beam_params(beam_size=8, best_of=8,
-                                 temperature_inc=0.0), 10.0)
+    n6, grp6, _ = drive("wide beam route: large-v3 widths (S 1280, 20 heads, "
+                        "128 mels, V 51866) cut to 2 audio + 3 text layers, "
+                        "bf16, beam 8, 10.0 s audio", wctx,
+                        beam_params(beam_size=8, best_of=8,
+                                    temperature_inc=0.0), 10.0)
     if not (n6["reorder_kv_live"] and n6["fused_filter_topk"]
             and grp6.get(8)) or n6["split_beam_attention"]:
         fail("the wide beam route did not go through K8 (or went through "
@@ -863,9 +1069,9 @@ def main() -> int:
 
     # ---- phase 7: the quantized paths (tiny.en, full width)
     ctx8 = gt.WhisperContext.synthetic("tiny.en", seed=0, quantize="int8")
-    n7, grp7 = drive("quantized path 1: tiny.en int8 weights, int8 cross-KV "
-                     "(W8A8), default ladder, 34.0 s audio", ctx8,
-                     gt.TranscribeParams(cross_kv_int8=True), 34.0)
+    n7, grp7, _ = drive("quantized path 1: tiny.en int8 weights, int8 "
+                        "cross-KV (W8A8), default ladder, 34.0 s audio", ctx8,
+                        gt.TranscribeParams(cross_kv_int8=True), 34.0)
     if not (n7["quant_matmul"] > n7["quant_matmul_oi"] > 0
             and n7["xattn_q_packed_w8a8"] and n7["log_mel_raw"]
             and n7["flash_attention_bh"] and n7["fused_filter_sample"]
@@ -874,10 +1080,10 @@ def main() -> int:
              "or sent cross-attention through K4")
     del ctx8
     ctx4 = gt.WhisperContext.synthetic("tiny.en", seed=0, quantize="int4")
-    n7b, grp7b = drive("quantized path 2: tiny.en int4 weights, int8 "
-                       "cross-KV (W8A8), beam 5, 34.0 s audio", ctx4,
-                       gt.TranscribeParams(strategy=beam, cross_kv_int8=True),
-                       34.0)
+    n7b, grp7b, _ = drive("quantized path 2: tiny.en int4 weights, int8 "
+                          "cross-KV (W8A8), beam 5, 34.0 s audio", ctx4,
+                          gt.TranscribeParams(strategy=beam,
+                                              cross_kv_int8=True), 34.0)
     if not (n7b["quant_matmul4"] and n7b["quant_matmul_oi"]
             and n7b["xattn_q_packed"] and n7b["fused_filter_topk"]
             and n7b["split_beam_attention"]) or grp7b.get(5):
@@ -890,15 +1096,24 @@ def main() -> int:
     wctx4 = gt.WhisperContext.from_params(
         wide, gt.init_params(wide, seed=0, device="cuda"), device="cuda",
         quantize="int4")
-    n8, _ = drive("wide quantized route: large-v3 widths cut to 2 audio + 3 "
-                  "text layers, int4 weights, int8 cross-KV, beam 8, 10.0 s "
-                  "audio", wctx4,
-                  beam_params(beam_size=8, best_of=8, temperature_inc=0.0,
-                              cross_kv_int8=True), 10.0)
+    n8, _, _ = drive("wide quantized route: large-v3 widths cut to 2 audio "
+                     "+ 3 text layers, int4 weights, int8 cross-KV, beam 8, "
+                     "10.0 s audio", wctx4,
+                     beam_params(beam_size=8, best_of=8, temperature_inc=0.0,
+                                 cross_kv_int8=True), 10.0)
     if not (n8["xattn_q_wide"] and n8["quant_matmul4"]
             and n8["reorder_kv_live"]) or n8["xattn_q_packed"]:
         fail("the wide quantized route did not go through K11, K10 and K8 "
              "(or went through K12)")
+    del wctx4
+
+    tmp = tempfile.mkdtemp(prefix="gwt_chip_smoke_")
+    try:
+        check_file_path(torch, gt, ctx, segs4, drive, tmp)
+        del ctx
+        n10 = check_long_context(torch, gt, drive, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     tpu = {"mel": "mel_kernel.py:77", "enc_attn": "attention.py:105",
            "decode_attn_k3": "decode_attention.py:126",
@@ -909,7 +1124,8 @@ def main() -> int:
            "kv_reorder": "kv_reorder.py:68",
            "qmatmul": "qmatmul.py:264", "qmatmul4": "qmatmul.py:151",
            "xattn_wide": "cross_attention.py:50",
-           "xattn_packed": "cross_attention.py:128"}
+           "xattn_packed": "cross_attention.py:128",
+           "enc_attn_long": "attention.py:53"}
     names = {"mel": ("log_mel_raw", "mel.cu"),
              "enc_attn": ("flash_attention_bh", "enc_attn.cu"),
              "decode_attn_k3": ("decode_attention[kv_group=1]",
@@ -923,11 +1139,13 @@ def main() -> int:
              "qmatmul": ("quant_matmul", "qmatmul.cu"),
              "qmatmul4": ("quant_matmul4", "qmatmul.cu"),
              "xattn_wide": ("xattn_q_wide", "cross_attn.cu"),
-             "xattn_packed": ("xattn_q_packed", "cross_attn.cu")}
+             "xattn_packed": ("xattn_q_packed", "cross_attn.cu"),
+             "enc_attn_long": ("flash_attention_long", "enc_attn_long.cu")}
     # launches: K1-K5 from the greedy main path (phase 4), K6 and K7 from
     # the beam path (phase 5), K8 from the wide beam route (phase 6), K9
     # and K12 from quantized path 1, K10 from path 2, K11 from the wide
-    # quantized route (phases 7-8)
+    # quantized route (phases 7-8), K13 from the long audio context
+    # (phase 10)
     n_launch = {"mel": launches["log_mel_raw"],
                 "enc_attn": launches["flash_attention_bh"],
                 "decode_attn_k3": groups.get(1, 0),
@@ -939,7 +1157,8 @@ def main() -> int:
                 "qmatmul": n7["quant_matmul"],
                 "qmatmul4": n7b["quant_matmul4"],
                 "xattn_wide": n8["xattn_q_wide"],
-                "xattn_packed": n7["xattn_q_packed"]}
+                "xattn_packed": n7["xattn_q_packed"],
+                "enc_attn_long": n10["flash_attention_long"]}
     # K9's second main-path shape, the 1500-row cross-K/V projection: its
     # numbers go to the log, the kernels line keeps one entry per kernel
     xk = recs.pop("qmatmul_xk")

@@ -14,10 +14,14 @@ Two paths, chosen as the JAX package chooses them:
 
 ``TranscribeParams.cross_kv_int8`` quantizes each window's cross-KV to int8
 right after it is projected (``models.model.quantize_cross_kv``) on both
-paths.  What the JAX package serves through its host-stepped decoder
-(grammar and the logit-filter callback), language auto-detection,
-token-level timestamps and injected mels wait for later slices; ``full``
-raises NotImplementedError for them instead of ignoring them.
+paths.  A multilingual model with ``language="auto"`` (or None) or
+``detect_language`` first runs ``detect_language`` (one encode, one [sot]
+decode, a softmax over the language tokens); ``token_timestamps`` fills each
+token's t0/t1 from the kept samples' energy and ``max_len`` re-splits
+segments (``decode/timestamps.py``).  What the JAX package serves through
+its host-stepped decoder (grammar and the logit-filter callback) and
+injected mels wait for later slices; ``full`` raises NotImplementedError for
+them instead of ignoring them.
 
 Timestamps are in the reference's centisecond units (t0/t1 are 10 ms ticks,
 token_beg + n <-> n * 20 ms).
@@ -30,16 +34,19 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..audio.mel import MelFrontend, frame_counts
 from ..audio.tokenizer import Tokenizer
 from ..models.config import MAX_DECODERS, WhisperConfig
-from ..models.model import cross_kv, encoder_forward, quantize_cross_kv
+from ..models.model import (cross_kv, decoder_dense, encoder_forward,
+                            init_kv_cache, param_compute_dtype,
+                            quantize_cross_kv)
 from ..runtime.metrics import Timings
 from ..runtime.trace import tracer
 from .clip import ClipDecoder, ClipStatics, mel_windows
 from .filters import build_filter_context
-from .language import lang_id
+from .language import detect_language_from_logits, lang_id, lang_str
 from .params import SamplingStrategy, TranscribeParams
 from .sequence import score_sequence
 from .window import WindowDecoder, WindowResult
@@ -69,18 +76,12 @@ class Segment:
     speaker_turn_next: bool = False
 
 
-def _unsupported(tparams: TranscribeParams,
-                 config: WhisperConfig) -> Optional[str]:
+def _unsupported(tparams: TranscribeParams) -> Optional[str]:
     """Why the port cannot run ``tparams`` yet (None when it can)."""
-    if config.is_multilingual and (tparams.language in (None, "auto")
-                                   or tparams.detect_language):
-        return "language auto-detection"
     if tparams.grammar_rules is not None:
         return "grammar-constrained decoding"
     if tparams.logits_filter_callback is not None:
         return "logits_filter_callback"
-    if tparams.token_timestamps:
-        return "token-level timestamps"
     return None
 
 
@@ -113,6 +114,7 @@ class WhisperPipeline:
         self.mel = MelFrontend(mel_filters, device=device)
         # n_loaded == 0 => weightless stub => test fast path
         self.n_loaded = n_loaded
+        self.lang_id_detected: Optional[int] = None
         self.timings = Timings()
         self._clip_decoders = {}
         self._window_decoders = {}
@@ -120,15 +122,40 @@ class WhisperPipeline:
         self._mel_n_len = 0
         self._n_len_org = 0
         self._prompt_past: List[int] = []
+        # token-level timestamps: the samples' energy and the anchors that
+        # persist across segments (whisper_state t_beg / t_last / tid_last)
+        self._samples: Optional[np.ndarray] = None
+        self._energy: Optional[np.ndarray] = None
+        self._ts_state = {"t_beg": 0, "t_last": 0, "tid_last": 0}
         self.segments: List[Segment] = []
 
     # ------------------------------------------------------------------ mel
     def set_audio(self, samples: np.ndarray) -> None:
         t0 = time.perf_counter()
         with tracer.span("mel", n_samples=len(samples)):
+            self._samples = np.asarray(samples, dtype=np.float32)
             self._mel_device, self._mel_n_len = self.mel.device(samples)
             _, self._n_len_org = frame_counts(len(samples))
         self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
+
+    # -------------------------------------------------------------- language
+    def detect_language(self, seek: int = 0,
+                        audio_ctx: int = 0) -> Tuple[int, np.ndarray]:
+        """Encode + one [sot] decode + softmax over the language tokens
+        (whisper_lang_auto_detect_with_state, whisper.cpp:3569-3642)."""
+        _, xkv = self.encode_window(seek, audio_ctx)
+        config = self.config
+        dev = self.device
+        kv = init_kv_cache(config, 1, dtype=param_compute_dtype(self.params),
+                           device=dev)
+        tokens = torch.full((1, 1), config.token_sot, dtype=torch.int32,
+                            device=dev)
+        positions = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        logits, _ = decoder_dense(self.params, config, tokens, positions, kv,
+                                  xkv, n_valid=torch.ones(1, dtype=torch.int32,
+                                                          device=dev))
+        return detect_language_from_logits(
+            logits[0, 0].float().cpu().numpy(), config)
 
     # ------------------------------------------------------------------ full
     def full(self, tparams: TranscribeParams,
@@ -136,7 +163,7 @@ class WhisperPipeline:
         config = self.config
         self.segments = []
         temperatures = tparams.temperatures()
-        why = _unsupported(tparams, config)
+        why = _unsupported(tparams)
         if why is not None:
             raise NotImplementedError(
                 f"{why} is not ported to godot_whisper_tpu_torch yet")
@@ -146,7 +173,25 @@ class WhisperPipeline:
         if self._mel_device is None:
             raise ValueError("no audio set")
 
-        language = tparams.language if config.is_multilingual else "en"
+        # language auto-detect (whisper.cpp:4985-5001)
+        language = tparams.language
+        if config.is_multilingual and (language in (None, "auto")
+                                       or tparams.detect_language):
+            lid, _ = self.detect_language(0, tparams.audio_ctx)
+            self.lang_id_detected = lid
+            language = lang_str(lid)
+            if tparams.detect_language:
+                return []
+        elif not config.is_multilingual:
+            language = "en"
+
+        # token-timestamp state (whisper.cpp:5003-5010)
+        if tparams.token_timestamps:
+            self._ts_state = {"t_beg": 0, "t_last": 0, "tid_last": 0}
+            if self._samples is not None and len(self._samples) > 0:
+                from .timestamps import signal_energy
+                self._energy = signal_energy(self._samples, 32)
+
         seek_start = tparams.offset_ms // 10
         seek_end = (self._n_len_org if tparams.duration_ms == 0
                     else seek_start + tparams.duration_ms // 10)
@@ -172,7 +217,8 @@ class WhisperPipeline:
         # task prefix (whisper.cpp:5104-5129)
         prompt_init = [config.token_sot]
         if config.is_multilingual:
-            prompt_init.append(config.token_lang(lang_id(language)))
+            self.lang_id_detected = lang_id(language or "en")
+            prompt_init.append(config.token_lang(self.lang_id_detected))
             prompt_init.append(config.token_translate if tparams.translate
                                else config.token_transcribe)
         no_timestamps = tparams.no_timestamps
@@ -444,5 +490,14 @@ class WhisperPipeline:
         self.segments.append(Segment(t0=t0, t1=t1, text=text,
                                      tokens=list(tokens),
                                      speaker_turn_next=speaker_turn))
+        n_new = 1
+        if tparams.token_timestamps:
+            from .timestamps import compute_token_level_timestamps, wrap_segment
+            compute_token_level_timestamps(self, len(self.segments) - 1,
+                                           tparams.thold_pt,
+                                           tparams.thold_ptsum)
+            if tparams.max_len > 0:
+                n_new = wrap_segment(self, tparams.max_len,
+                                     tparams.split_on_word)
         if tparams.new_segment_callback:
-            tparams.new_segment_callback(self, 1)
+            tparams.new_segment_callback(self, n_new)

@@ -21,8 +21,10 @@ and the embedding gather and logits read the int8 token embedding.
 
 bf16 rounding points follow the JAX package as XLA compiles it: every
 projection accumulates in f32, adds its f32 bias and rounds once to the
-compute dtype; LayerNorm and softmax run in f32, and a LayerNorm inside a
-layer reads the unrounded f32 residual sum (``_residual``).
+compute dtype; LayerNorm and softmax run in f32, a LayerNorm inside a
+layer reads the unrounded f32 residual sum (``_residual``), and each GELU
+of the conv stem reads the convolution's unrounded f32 sum
+(``conv_stem``).
 
 Where the JAX package returns a fresh cache, ``decoder_dense`` and
 ``decoder_step`` write the new K/V rows INTO the cache they are given (a
@@ -142,6 +144,24 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ================================================================== encoder ==
+def conv_stem(enc: Params, mel_window: torch.Tensor) -> torch.Tensor:
+    """(B, 2T, n_mels) mel -> (B, T, S) f32: two conv1d (k=3, pad=1, the
+    second stride 2), each + bias + GELU.  The convolutions take
+    compute-dtype values and keep their f32 sums, so each GELU reads the
+    unrounded sum, as the JAX package's jitted window encode computes it
+    (XLA's excess precision drops the bf16 rounding of the conv output);
+    the first GELU's output is rounded to the compute dtype.  f32 must not
+    drop to TF32 in cuDNN."""
+    cdtype = enc["conv1"]["w"].dtype
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        x = mel_window.to(cdtype).transpose(1, 2)              # (B, M, 2T)
+        x = Fn.conv1d(x.float(), enc["conv1"]["w"].float(), padding=1)
+        x = _gelu(x + enc["conv1"]["b"][:, None]).to(cdtype)
+        x = Fn.conv1d(x.float(), enc["conv2"]["w"].float(), stride=2,
+                      padding=1)
+    return _gelu(x + enc["conv2"]["b"][:, None]).transpose(1, 2)
+
+
 def encoder_forward(params: Params, config: WhisperConfig,
                     mel_window: torch.Tensor,
                     audio_ctx: Optional[int] = None) -> torch.Tensor:
@@ -158,13 +178,7 @@ def encoder_forward(params: Params, config: WhisperConfig,
     n_head = config.n_audio_head
     cdtype = enc["conv1"]["w"].dtype
 
-    # the f32 stem must not drop to TF32 inside cuDNN
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        x = mel_window.to(cdtype).transpose(1, 2)              # (B, M, T)
-        x = Fn.conv1d(x, enc["conv1"]["w"], padding=1)
-        x = _gelu(x.float() + enc["conv1"]["b"][:, None]).to(cdtype)
-        x = Fn.conv1d(x, enc["conv2"]["w"], stride=2, padding=1)
-    x = _gelu(x.float() + enc["conv2"]["b"][:, None]).transpose(1, 2)
+    x = conv_stem(enc, mel_window)
     x = (x + enc["pos_embed"][:n_ctx]).to(cdtype)              # (B, T, S)
 
     b_sz, t_real, c = x.shape

@@ -1,5 +1,5 @@
-"""Parameter trees: layout, dtype policy, random init, conversion from the
-JAX package.
+"""Parameter trees: layout, dtype policy, random init, conversion from a
+ggml checkpoint (``params_from_raw``) and from the JAX package.
 
 The layout is the JAX package's, so tests compare like with like:
 
@@ -26,6 +26,7 @@ import torch
 from ..ops.qmatmul import QUANT_TYPES, Quant4Tensor, QuantTensor
 from ..runtime.device import resolve_device
 from .config import WhisperConfig
+from .loader_ggml import RawCheckpoint
 
 Params = Dict[str, Any]
 
@@ -145,6 +146,105 @@ def init_params(config: WhisperConfig, *, seed: int = 0,
             "blocks": blocks(Lt, cross=True),
         },
     }
-    params = cast_params(params_from_jax(tree), compute_dtype)
+    return _tree_to_device(tree, compute_dtype, device)
+
+
+def _tree_to_device(tree, compute_dtype, device) -> Params:
+    """A float32 numpy tree in the JAX package's layout -> the port's tree
+    in the dtype policy on ``device`` (None is the card)."""
     dev = resolve_device(device)
+    params = cast_params(params_from_jax(tree), compute_dtype)
     return _map(params, lambda t, path: t.to(dev))
+
+
+def _attn_block_names(prefix: str) -> Dict[str, str]:
+    return {
+        "wq": f"{prefix}.query.weight", "bq": f"{prefix}.query.bias",
+        "wk": f"{prefix}.key.weight",                      # K has no bias
+        "wv": f"{prefix}.value.weight", "bv": f"{prefix}.value.bias",
+        "wo": f"{prefix}.out.weight", "bo": f"{prefix}.out.bias",
+    }
+
+
+def params_from_raw(raw: RawCheckpoint, *, compute_dtype=torch.bfloat16,
+                    device=None) -> Params:
+    """A ``RawCheckpoint`` (models/loader_ggml.py) -> the port's tree on
+    ``device`` (None is the card) in ``compute_dtype``: the JAX package's
+    ``params_from_raw`` table, ggml's (out, in) matrices transposed to (in,
+    out), conv kernels kept in ggml's (out, in, width).  Missing tensors
+    (stub checkpoints) are zero-filled; the pipeline sees ``n_loaded == 0``
+    and takes the test fast path (whisper.cpp:5492-5497)."""
+    c = raw.config
+    t = raw.tensors
+    S, V, M = c.n_audio_state, c.n_vocab, c.n_mels
+    La, Lt = c.n_audio_layer, c.n_text_layer
+
+    def get(name: str, shape) -> np.ndarray:
+        arr = t.get(name)
+        if arr is None:
+            return np.zeros(shape, dtype=np.float32)
+        return arr.astype(np.float32)
+
+    def tr(a: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(a.T)
+
+    def stack(fmt: str, n_layer: int, shape, transform=None) -> np.ndarray:
+        outs = [get(fmt.format(i), shape) for i in range(n_layer)]
+        return np.stack([transform(a) if transform else a for a in outs])
+
+    def attn_stack(prefix_fmt: str, n_layer: int) -> Dict[str, np.ndarray]:
+        out = {}
+        for key, suffix in _attn_block_names("{p}").items():
+            fmt = prefix_fmt + suffix[3:]  # strip "{p}"
+            out[key] = (stack(fmt, n_layer, (S, S), tr) if key.startswith("w")
+                        else stack(fmt, n_layer, (S,)))
+        return out
+
+    def ln(fmt: str, n_layer: int) -> Dict[str, np.ndarray]:
+        return {"g": stack(fmt + ".weight", n_layer, (S,)),
+                "b": stack(fmt + ".bias", n_layer, (S,))}
+
+    def mlp(side: str, n_layer: int) -> Dict[str, np.ndarray]:
+        p = side + ".blocks.{}.mlp"
+        return {"w0": stack(p + ".0.weight", n_layer, (4 * S, S), tr),
+                "b0": stack(p + ".0.bias", n_layer, (4 * S,)),
+                "w1": stack(p + ".2.weight", n_layer, (S, 4 * S), tr),
+                "b1": stack(p + ".2.bias", n_layer, (S,))}
+
+    # built in the JAX package's layout (conv (width, in, out)), which
+    # ``params_from_jax`` turns into the port's
+    tree = {
+        "encoder": {
+            "pos_embed": get("encoder.positional_embedding",
+                             (c.n_audio_ctx, S)),
+            "conv1": {"w": get("encoder.conv1.weight", (S, M, 3)
+                               ).transpose(2, 1, 0),
+                      "b": get("encoder.conv1.bias", (S, 1)).reshape(S)},
+            "conv2": {"w": get("encoder.conv2.weight", (S, S, 3)
+                               ).transpose(2, 1, 0),
+                      "b": get("encoder.conv2.bias", (S, 1)).reshape(S)},
+            "ln_post": {"g": get("encoder.ln_post.weight", (S,)),
+                        "b": get("encoder.ln_post.bias", (S,))},
+            "blocks": {
+                "attn_ln": ln("encoder.blocks.{}.attn_ln", La),
+                "attn": attn_stack("encoder.blocks.{}.attn", La),
+                "mlp_ln": ln("encoder.blocks.{}.mlp_ln", La),
+                "mlp": mlp("encoder", La),
+            },
+        },
+        "decoder": {
+            "pos_embed": get("decoder.positional_embedding", (c.n_text_ctx, S)),
+            "token_embed": get("decoder.token_embedding.weight", (V, S)),
+            "ln": {"g": get("decoder.ln.weight", (S,)),
+                   "b": get("decoder.ln.bias", (S,))},
+            "blocks": {
+                "attn_ln": ln("decoder.blocks.{}.attn_ln", Lt),
+                "attn": attn_stack("decoder.blocks.{}.attn", Lt),
+                "cross_attn_ln": ln("decoder.blocks.{}.cross_attn_ln", Lt),
+                "cross_attn": attn_stack("decoder.blocks.{}.cross_attn", Lt),
+                "mlp_ln": ln("decoder.blocks.{}.mlp_ln", Lt),
+                "mlp": mlp("decoder", Lt),
+            },
+        },
+    }
+    return _tree_to_device(tree, compute_dtype, device)

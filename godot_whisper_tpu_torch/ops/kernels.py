@@ -27,8 +27,9 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("mel", "enc_attn", "decode_attn", "filter_sample", "split_attn",
-           "kv_reorder", "qmatmul", "cross_attn")
+SOURCES = ("mel", "enc_attn", "enc_attn_long", "decode_attn",
+           "filter_sample", "split_attn", "kv_reorder", "qmatmul",
+           "cross_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -420,3 +420,66 @@ def test_cross_attention_quant_kernel_matches_plain(cuda, w8a8, s, h, kg, g,
         assert bool((err <= tol).all())
     else:
         assert float(err.max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,t,d,t_valid", [(6, 2048, 64, 2000),
+                                            (20, 2048, 64, 2048),
+                                            (4, 2000, 32, 2000),
+                                            (3, 1600, 64, 1555)])
+def test_long_attention_kernel_matches_plain(cuda, dtype, bh, t, d,
+                                             t_valid):
+    """K13 against its plain version (the same 512-key blocks and rounding
+    points): f32 within 1e-5; bf16 within one bf16 ulp per element plus
+    one flipped bf16 rounding of a probability per row
+    (``blocked_bf16_limit``).  ``flash_attention_bh`` routes a 512-padded
+    T above 1536 to K13 and never to K2."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(bh, t, d, generator=gen).to(cuda,
+                                                       getattr(torch, dtype))
+               for _ in range(3))
+    before = (A.flash_attention_bh.launches, A.flash_attention_long.launches)
+    got = A.flash_attention_bh(q, k, v, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bh.launches,
+            A.flash_attention_long.launches) == (before[0], before[1] + 1)
+    want = A.attention_bh_blocked_plain(q, k, v, t_valid)
+    err = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert float(err.max()) < 1e-5
+    else:
+        lim = A.blocked_bf16_limit(q, k, v, want, t_valid)
+        assert bool((err <= lim).all())
+
+
+def test_from_file_on_the_card(cuda, tmp_path):
+    """A ggml file written by the port's exporter loads onto the card by
+    default (from_file and from_buffer) and transcribes as the CPU does
+    (f32, gates open)."""
+    from godot_whisper_tpu_torch.audio.tokenizer import synthetic_vocab
+    from godot_whisper_tpu_torch.models import loader_ggml
+    from godot_whisper_tpu_torch.models.export_ggml import export_checkpoint
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=3, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano-3")
+    path = str(tmp_path / "nano3.bin")
+    export_checkpoint(path, gt.init_params(cfg, seed=3, device="cpu",
+                                           compute_dtype=torch.float32),
+                      cfg, mel_filterbank(80), synthetic_vocab(cfg),
+                      ttype=loader_ggml.GGML_TYPE_F32)
+    t = np.arange(20 * 16000) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * (220.0 + 60 * np.sin(
+        2 * np.pi * 0.07 * t)) * t)).astype(np.float32)
+    tp = gt.TranscribeParams(entropy_thold=-1e9, logprob_thold=-1e9)
+
+    def view(c):
+        return [(s.text, s.t0, s.t1, [x.id for x in s.tokens])
+                for s in c.full(tp, audio)]
+    want = view(gt.WhisperContext.from_file(path, device="cpu",
+                                            compute_dtype=torch.float32))
+    card = gt.WhisperContext.from_file(path, compute_dtype=torch.float32)
+    assert card.pipeline.device.type == "cuda"
+    assert len(want) > 0 and view(card) == want
+    buf = gt.WhisperContext.from_buffer(open(path, "rb").read(),
+                                        compute_dtype=torch.float32)
+    assert view(buf) == want

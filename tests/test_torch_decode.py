@@ -220,8 +220,6 @@ def test_pipeline_helpers_need_a_device():
 @pytest.mark.parametrize("kw,base", [
     (dict(grammar_rules="root ::= \"a\""), "tiny.en"),
     (dict(logits_filter_callback=lambda *a: None), "tiny.en"),
-    (dict(language="auto"), "tiny"),
-    (dict(token_timestamps=True), "tiny.en"),
 ])
 def test_unported_paths_raise(kw, base):
     ctx = _ctx(base)

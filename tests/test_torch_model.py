@@ -168,3 +168,57 @@ def test_decoder_step_matches_jax_and_dense(nano, encoded):
     steps = np.stack(steps, axis=1)                        # (B, 5, V)
     for b in range(B):
         np.testing.assert_allclose(steps[b], ref[b], atol=ATOL, rtol=0)
+
+
+def test_bf16_conv_stem_matches_compiled_jax():
+    """The conv stem's rounding points are those of the JAX package's
+    jitted window encode: XLA keeps each convolution's f32 sum for the GELU
+    that reads it.  The port's stem (``conv_stem``, f32 sums of the bf16
+    values) agrees with the compiled JAX stem in all but a few elements
+    (f32 sums in another order: 51 of 192000 on this input); the stem that
+    rounds each conv output to bf16 first differs in about half."""
+    import jax
+
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=3, n_audio_state=128,
+        n_audio_head=4, n_text_state=128, n_text_head=4, name="nano-3")
+    tp = init_params(cfg, seed=3, compute_dtype=torch.bfloat16,
+                     device="cpu")
+    jp = jax_init_params(cfg, seed=3, compute_dtype=jnp.bfloat16)
+    mel = (np.random.default_rng(0).standard_normal((1, 3000, 80)) * 0.5
+           ).astype(np.float32)
+
+    @jax.jit
+    def jax_stem(enc, w):   # models/model.py encoder_forward's stem lines
+        dn = ("NWC", "WIO", "NWC")
+        y = jax.lax.conv_general_dilated(w.astype(jnp.bfloat16),
+                                         enc["conv1"]["w"], (1,), [(1, 1)],
+                                         dimension_numbers=dn)
+        y = jax.nn.gelu(y.astype(jnp.float32) + enc["conv1"]["b"],
+                        approximate=False).astype(jnp.bfloat16)
+        y = jax.lax.conv_general_dilated(y, enc["conv2"]["w"], (2,),
+                                         [(1, 1)], dimension_numbers=dn)
+        y = jax.nn.gelu(y.astype(jnp.float32) + enc["conv2"]["b"],
+                        approximate=False)
+        return (y + enc["pos_embed"][:1500]).astype(jnp.bfloat16)
+
+    want = np.asarray(jax_stem(jp["encoder"], jnp.asarray(mel))
+                      .astype(jnp.float32))
+    enc = tp["encoder"]
+
+    def port(stem):
+        return (stem + enc["pos_embed"][:1500]).to(torch.bfloat16).float()
+
+    got = port(tm.conv_stem(enc, torch.from_numpy(mel))).numpy()
+    # control: the conv output rounded to bf16 before each GELU
+    x = torch.nn.functional.conv1d(
+        torch.from_numpy(mel).to(torch.bfloat16).transpose(1, 2),
+        enc["conv1"]["w"], padding=1)
+    x = tm._gelu(x.float() + enc["conv1"]["b"][:, None]).to(torch.bfloat16)
+    x = torch.nn.functional.conv1d(x, enc["conv2"]["w"], stride=2,
+                                   padding=1)
+    rounded = port(tm._gelu(x.float() + enc["conv2"]["b"][:, None])
+                   .transpose(1, 2)).numpy()
+    assert got.shape == want.shape
+    assert (got != want).mean() < 1e-3
+    assert (rounded != want).mean() > 0.1

@@ -303,13 +303,40 @@ def _view(segs):
     return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in segs]
 
 
+def _feed_jax_mel_and_encoder(monkeypatch, jctx, ctx, audio):
+    """Give the port's clip loop the JAX package's log-mel of ``audio`` and
+    its jitted encoder's output.  Both stages agree with JAX to within
+    their own f32 sum-order floor (mel 1.5e-4 against a port f32-vs-f64 gap
+    of 1.2e-4; encoder mean 1.1e-3 against 1.1e-3, nano-3 bf16), and at
+    that floor a near tie of the decoder (logits 1.0322 / 1.0299 at 27.72 s
+    of this clip) may go either way; fed identical inputs, the quantized
+    decoder and loop must agree token for token."""
+    import godot_whisper_tpu_torch.decode.clip as tclip
+    jctx.pipeline.set_audio(audio)
+    mel = torch.from_numpy(np.array(jctx.pipeline._mel_device))
+    n_len = jctx.pipeline._mel_n_len
+    monkeypatch.setattr(ctx.pipeline.mel, "device",
+                        lambda samples: (mel, n_len))
+    jp, jcfg = jctx.pipeline.params, jctx.config
+    encode = jax.jit(lambda p, w: jm.encoder_forward(p, jcfg, w))
+
+    def encoder_forward(params, config, wins, audio_ctx=None):
+        enc = encode(jp, jnp.asarray(wins.float().numpy()))
+        return torch.from_numpy(np.asarray(enc.astype(jnp.float32))).to(
+            torch.bfloat16)
+    monkeypatch.setattr(tclip, "encoder_forward", encoder_forward)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
-def test_full_quantized_segments_match_jax(mode):
+def test_full_quantized_segments_match_jax(mode, monkeypatch):
     """Gates open, 34 s (two windows), the default ladder's greedy rung:
-    ``full`` on an int8 / int4 decoder gives the JAX package's segments."""
+    ``full`` on an int8 / int4 decoder gives the JAX package's segments,
+    the port's clip loop fed JAX's log-mel and encoder output
+    (``_feed_jax_mel_and_encoder``)."""
     jctx, ctx = _contexts(mode)
     audio = _audio(34.0)
     want = jctx.full(jgwt.TranscribeParams(**GATES_OPEN), audio)
+    _feed_jax_mel_and_encoder(monkeypatch, jctx, ctx, audio)
     got = ctx.full(gt.TranscribeParams(**GATES_OPEN), audio)
     assert len(want) > 0
     assert _view(got) == _view(want)
