@@ -46,8 +46,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
 9. file path -- phase 4's bf16 weights exported as an F32 ggml file (the
    port's exporter), WhisperContext.from_file and from_buffer of it, each
    .full(TranscribeParams(), 34 s): segments equal phase 4's token for
-   token.  Then the CLI in-process on a 44.1 kHz WAV with every output
-   writer and --max-len 40 (every file written and parsed), and a
+   token.  Then the CLI in-process on a 44.1 kHz WAV, from the same
+   weights with the decoder's final LayerNorm gain at 8x (segments of
+   several tokens): with every output writer and --max-len 5 (every file
+   written and parsed, more segments than without --max-len), and a
    multilingual tiny checkpoint with -l auto --detect-language (a language
    printed).  Files go to a temporary directory.
 10. long audio context (K13) -- tiny.en widths at full depth with
@@ -117,6 +119,27 @@ def tf32_round(torch, x):
     round GEMM inputs when TF32 is allowed."""
     i = x.contiguous().view(torch.int32)
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def blocked_bf16_limit(torch, q, k, v, want, t_valid=None):
+    """Per-element limit for K13 in bf16 held against its plain version:
+    one bf16 ulp of the element (the output's own rounding), plus one
+    flipped bf16 rounding of a probability in its row, 2^-8 max_j w_rj
+    max_j |v_jc| with w the softmax weights (two implementations whose f32
+    scores or exp differ in the last bit round a p that sits on a bf16
+    midpoint differently), plus 1e-5 for f32 sums in another order.  It
+    tells K13's function from K2's: the single-pass version exceeds it
+    (``check_long_attention``'s control)."""
+    t, d = k.shape[1], q.shape[-1]
+    tv = t if t_valid is None else int(t_valid)
+    s = torch.matmul(q.float(), k[:, :tv].float().transpose(1, 2)) * (
+        d ** -0.5)
+    w_max = torch.exp(s.amax(dim=-1, keepdim=True)
+                      - torch.logsumexp(s, dim=-1, keepdim=True))
+    v_max = v[:, :tv].float().abs().amax(dim=1, keepdim=True)
+    a = torch.clamp_min(want.float().abs(), 2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return ulp + 2.0 ** -8 * w_max * v_max + 1e-5
 
 
 def frozen_audio(seconds: float) -> np.ndarray:
@@ -702,15 +725,23 @@ def check_long_attention(torch, rng):
         sync()
         want = A.attention_bh_blocked_plain(q, k, v, tv)
         err = (got.float() - want.float()).abs()
-        share = float((err / A.blocked_bf16_limit(q, k, v, want, tv)).max())
+        lim = blocked_bf16_limit(torch, q, k, v, want, tv)
+        share = float((err / lim).max())
         e_max = float(err.max())
+        # control: K2's single-pass function must not pass the same limit
+        ctl = float(((A.attention_bh_plain(q, k, v, tv).float()
+                      - want.float()).abs() / lim).max())
         log(f"K13 enc_attn_long [{tag}] ({bh}, {T}, {D}) t_valid {tv}: f32 "
             f"max_abs_err {ef:.3e} (tol 1e-5: f32 sums in another order); "
             f"bf16 max_abs_err {e_max:.3e}, worst share of the per-element "
             f"tol {share:.3f} (tol one bf16 ulp + one flipped bf16 rounding "
-            "of p per row + 1e-5; must be <= 1)")
+            f"of p per row + 1e-5; must be <= 1); control, the single-pass "
+            f"function against the same tol: share {ctl:.3f} (must be > 1)")
         if not (ef < 1e-5 and share <= 1.0):
             fail(f"K13 [{tag}] disagrees with its plain version")
+        if ctl <= 1.0:
+            fail(f"K13 [{tag}]: the bf16 tol does not tell the blocked "
+                 "function from the single-pass one")
         mask = (torch.arange(T, device=dev) < tv)[None, None, None]
         q4, k4, v4 = (x.view(1, bh, T, D) for x in (q, k, v))
         r = dict(err=e_max,
@@ -728,7 +759,7 @@ def check_long_attention(torch, rng):
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
         if bh == 6:
             recs["enc_attn_long"] = r
-        del qf, kf, vf, q, k, v, got, want, err
+        del qf, kf, vf, q, k, v, got, want, err, lim
         torch.cuda.empty_cache()
     return recs
 
@@ -867,7 +898,11 @@ def check_file_path(torch, gt, ctx, segs4, drive, tmp):
                  f"{seg_view(segs)[:2]} vs {want[:2]}")
         del c
 
-    # the CLI in-process, every writer, a WAV that must be resampled
+    # the CLI in-process, every writer, a WAV that must be resampled.  Its
+    # checkpoint is phase 4's with the decoder's final LayerNorm gain at 8x:
+    # logits spread as a trained model's do, so a segment holds several
+    # text tokens (at the random init's spread a timestamp follows each
+    # one) and --max-len 5 must split it, one token per segment
     sr = 44100
     t = np.arange(int(34.0 * sr)) / sr
     x = (0.3 * np.sin(2 * np.pi * (220.0 + 60 * np.sin(
@@ -876,9 +911,19 @@ def check_file_path(torch, gt, ctx, segs4, drive, tmp):
         * (0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t))).astype(np.float32)
     wav = os.path.join(tmp, "clip-44k.wav")
     write_wav(wav, x, sr)
+    params = ctx.pipeline.params
+    dec = dict(params["decoder"], ln={"g": params["decoder"]["ln"]["g"] * 8,
+                                      "b": params["decoder"]["ln"]["b"]})
+    wide = os.path.join(tmp, "tiny.en-gain8-f32.bin")
+    export_checkpoint(wide, dict(params, decoder=dec), cfg,
+                      mel_filterbank(cfg.n_mels), synthetic_vocab(cfg),
+                      ttype=loader_ggml.GGML_TYPE_F32)
+    rc0 = cli_main(["-m", wide, wav, "-oj", "-of", wav + ".unsplit",
+                    "--no-prints"])
+    unsplit = json.load(open(wav + ".unsplit.json"))["transcription"]
     t0 = time.perf_counter()
-    rc = cli_main(["-m", path, wav, "-otxt", "-osrt", "-ovtt", "-oj", "-ojf",
-                   "-owts", "--max-len", "40", "--no-prints"])
+    rc = cli_main(["-m", wide, wav, "-otxt", "-osrt", "-ovtt", "-oj", "-ojf",
+                   "-owts", "--max-len", "5", "--no-prints"])
     wall = time.perf_counter() - t0
     stamp = r"\d\d:\d\d:\d\d[.,]\d\d\d --> \d\d:\d\d:\d\d[.,]\d\d\d"
     txt = open(wav + ".txt").read()
@@ -888,7 +933,8 @@ def check_file_path(torch, gt, ctx, segs4, drive, tmp):
     js = json.load(open(wav + ".json"))
     wts = open(wav + ".wts").read()
     segs = js["transcription"]
-    ok = (rc == 0 and txt.strip() != ""
+    ok = (rc0 == rc == 0 and txt.strip() != ""
+          and len(segs) > len(unsplit) > 0
           and all(len(b) >= 3 and b[0].isdigit() and re.fullmatch(stamp, b[1])
                   for b in srt)
           and vtt.startswith("WEBVTT") and len(re.findall(stamp, vtt))
@@ -896,12 +942,16 @@ def check_file_path(torch, gt, ctx, segs4, drive, tmp):
           and all(s["tokens"] and all("timestamps" in tk
                                       for tk in s["tokens"]) for s in segs)
           and wts.startswith("#!/bin/bash") and "ffmpeg" in wts)
-    log(f"CLI: 34.0 s WAV at 44.1 kHz (resampled), -otxt -osrt -ovtt -oj -ojf "
-        f"-owts --max-len 40: rc {rc}, {wall:.2f} s, {len(segs)} segments "
-        f"(longest text {max(len(s['text'].encode()) for s in segs)} "
-        f"bytes), every file parsed: {ok}")
+    log(f"CLI: decoder LayerNorm gain 8x, 34.0 s WAV at 44.1 kHz "
+        f"(resampled): -oj {len(unsplit)} segments (longest text "
+        f"{max((len(s['text'].encode()) for s in unsplit), default=0)} "
+        f"bytes); -otxt -osrt -ovtt -oj -ojf -owts --max-len 5: rc {rc}, "
+        f"{wall:.2f} s, {len(segs)} segments (longest text "
+        f"{max((len(s['text'].encode()) for s in segs), default=0)} bytes), "
+        f"split and every file parsed: {ok}")
     if not ok:
-        fail("the CLI's outputs are missing or do not parse")
+        fail("the CLI's outputs are missing or do not parse, or --max-len "
+             "split no segment")
 
     mcfg = gt.get_config("tiny")
     mctx = gt.WhisperContext.synthetic("tiny", seed=0)

@@ -72,27 +72,6 @@ def attention_bh_blocked_plain(q: torch.Tensor, k: torch.Tensor,
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
-def blocked_bf16_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       want: torch.Tensor,
-                       t_valid: Optional[int] = None) -> torch.Tensor:
-    """Per-element limit for K13 in bf16 held against its plain version:
-    one bf16 ulp of the element (the output's own rounding), plus one
-    flipped bf16 rounding of a probability in its row, 2^-8 max_j w_rj
-    max_j |v_jc| with w the softmax weights (two implementations whose f32
-    scores or exp differ in the last bit round a p that sits on a bf16
-    midpoint differently), plus 1e-5 for f32 sums in another order."""
-    t, d = k.shape[1], q.shape[-1]
-    tv = t if t_valid is None else int(t_valid)
-    s = torch.matmul(q.float(), k[:, :tv].float().transpose(1, 2)) * (
-        d ** -0.5)
-    w_max = torch.exp(s.amax(dim=-1, keepdim=True)
-                      - torch.logsumexp(s, dim=-1, keepdim=True))
-    v_max = v[:, :tv].float().abs().amax(dim=1, keepdim=True)
-    a = torch.clamp_min(want.float().abs(), 2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
-    return ulp + 2.0 ** -8 * w_max * v_max + 1e-5
-
-
 def _check(what: str, q, k, v, tv: int) -> None:
     K.require_cuda(what, q, k, v)
     t, d = q.shape[1], q.shape[2]

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import godot_whisper_tpu_torch as gt
+from chip_smoke import blocked_bf16_limit
 from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
                                                pad_audio)
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -448,7 +449,7 @@ def test_long_attention_kernel_matches_plain(cuda, dtype, bh, t, d,
     if dtype == "float32":
         assert float(err.max()) < 1e-5
     else:
-        lim = A.blocked_bf16_limit(q, k, v, want, t_valid)
+        lim = blocked_bf16_limit(torch, q, k, v, want, t_valid)
         assert bool((err <= lim).all())
 
 

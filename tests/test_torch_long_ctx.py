@@ -12,6 +12,7 @@ import torch
 
 import godot_whisper_tpu as jgwt
 import godot_whisper_tpu_torch as gt
+from chip_smoke import blocked_bf16_limit
 from godot_whisper_tpu.audio.mel import mel_filterbank as jmel_filterbank
 from godot_whisper_tpu.audio.tokenizer import synthetic_vocab as jvocab
 from godot_whisper_tpu.models import loader_ggml as jloader
@@ -22,7 +23,11 @@ from godot_whisper_tpu.ops import attention as jattn
 from godot_whisper_tpu_torch.models import model as tm
 from godot_whisper_tpu_torch.ops import attention as A
 
-GATES_OPEN = dict(entropy_thold=-1e9, logprob_thold=-1e9)
+# gates open and one decoder row per stream in both packages: every window
+# settles on the t = 0 rung (the port's 5-row ladder is held to JAX in
+# tests/test_torch_decode.py)
+GREEDY = dict(entropy_thold=-1e9, logprob_thold=-1e9, best_of=1,
+              temperature_inc=0.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,7 +78,7 @@ def test_blocked_plain_matches_jax_k13(interpret, dtype, bh, t, d):
     if dtype == "float32":
         assert err.max() < 2e-4
     else:
-        lim = A.blocked_bf16_limit(qt, kt, vt, torch.from_numpy(want))
+        lim = blocked_bf16_limit(torch, qt, kt, vt, torch.from_numpy(want))
         assert (err / lim.numpy()).max() <= 1.0
     # the same function with t_valid on an already padded T
     if t % 512 == 0:
@@ -83,15 +88,20 @@ def test_blocked_plain_matches_jax_k13(interpret, dtype, bh, t, d):
 
 
 def test_blocked_plain_differs_from_single_pass_in_bf16():
-    """The 512-key blocks are rounding points of K13's function: in bf16
-    the blocked version and the single-pass one (K2's) differ."""
+    """The 512-key blocks are rounding points of K13's function: at phase
+    10's shape (6 heads, T 2048, 2000 valid) in bf16 the single-pass
+    version (K2's) stays within a few bf16 ulps of the blocked one, yet
+    breaks ``blocked_bf16_limit``, the card check's limit for K13, so that
+    check can tell the two functions apart."""
     rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 2048, 64)).astype(
+    q, k, v = (torch.from_numpy(rng.standard_normal((6, 2048, 64)).astype(
         np.float32)).to(torch.bfloat16) for _ in range(3))
     a = A.attention_bh_blocked_plain(q, k, v, 2000)
     b = A.attention_bh_plain(q, k, v, 2000)
-    assert not torch.equal(a, b)
-    assert float((a.float() - b.float()).abs().max()) < 4e-3
+    err = (a.float() - b.float()).abs()
+    assert float(err.max()) < 4e-3
+    lim = blocked_bf16_limit(torch, q, k, v, a, 2000)
+    assert float((err / lim).max()) > 1
 
 
 def test_encoder_long_ctx_matches_jax(interpret, monkeypatch):
@@ -146,9 +156,8 @@ def test_full_from_custom_context_file_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(A, "attention_bh_blocked_plain",
                         lambda *a, **kw: calls.append(1) or orig(*a, **kw))
     audio = _audio(50.0)
-    want = jctx.full(jgwt.TranscribeParams(best_of=1, temperature_inc=0.0,
-                                           **GATES_OPEN), audio)
-    got = ctx.full(gt.TranscribeParams(**GATES_OPEN), audio)
+    want = jctx.full(jgwt.TranscribeParams(**GREEDY), audio)
+    got = ctx.full(gt.TranscribeParams(**GREEDY), audio)
 
     def view(segs):
         return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in segs]
