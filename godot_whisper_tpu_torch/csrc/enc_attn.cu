@@ -1,28 +1,35 @@
 // K2: encoder self-attention, head-major (BH, T, D), keys >= t_valid masked.
 //
 // Replaces the TPU kernel `_flash_sp_kernel` (godot_whisper_tpu/ops/
-// attention.py, reached through `_flash_sp` / `flash_attention_bh`): per
-// batch*head, softmax(q k^T / sqrt(D) with key columns >= t_valid set to
-// -1e30) v over the whole T.  The TPU kernel's extra contraction column and
-// ones block are Mosaic workarounds, not part of the function; here the
-// mask is an explicit compare and the row sum a running scalar.
+// attention.py, reached through `_flash_sp` / `flash_attention_bh`).  Its
+// function is single-pass: q' = q * scale (rounded to bf16 for bf16
+// inputs, with the scale rounded first), s = q' k^T in f32 with key columns
+// >= t_valid at -1e30, ONE row max m over all keys, p = exp(s - m) (rounded
+// to bf16 for bf16 inputs), l = sum of those p, out = (p . v) / max(l,
+// 1e-30).  The TPU kernel's extra contraction column and ones block are
+// Mosaic workarounds for the mask and the row sum, not part of the
+// function.
 //
 // Bound on an H100: 4 * BH * T^2 * D operations; tiny.en at T = 1536 is
 // 3.6 GFLOP per layer, 3.7 us at the 989 TFLOP/s bf16 tensor-core rate.
 // Bytes (q, k, v in and o out, 4 * BH * T * D elements) are ~1000x below
 // that, so the kernel is bound by operations.
 //
-// Design (simple first): one block of 128 threads per (64-query tile, bh).
-// Thread t owns query t % 64 with its q row and f32 output accumulator in
-// registers, and half t / 64 of every 64-key tile, with its own online
-// softmax (running max m, sum l).  K and V tiles are staged in shared memory
-// as f32 and read as broadcasts (all lanes of a warp read the same key).
-// The two halves merge through shared memory at the end.  The arithmetic
-// is f32 FMA on the CUDA cores, not the tensor cores: the kernel stays far
-// from the bound, and `mma`/`wgmma` tiles are later work.  Any T is
-// handled: keys past T load as zeros and are masked, queries past T are
-// not written.
+// bf16 inputs run on the tensor cores (`wgmma`, enc_attn_tc.cuh, SP =
+// true): a first pass over K takes each row's max, a second one computes
+// the rounded p, their sum and P . V, so every p is rounded against the
+// row's final max as the TPU kernel rounds it.  f32 inputs keep the
+// CUDA-core kernel below: full f32 without TF32 (the nano goldens need
+// it), one block of 128 threads per (64-query tile, bh); thread t owns
+// query t % 64 with its q row and f32 accumulator in registers, and half
+// t / 64 of every 64-key tile with its own online softmax (running max m,
+// sum l); K and V tiles are staged in shared memory as f32 and read as
+// broadcasts; the two halves merge through shared memory at the end.  In
+// f32 the online softmax equals the single-pass function up to f32
+// rounding.  Any T is handled: keys past T load as zeros and are masked,
+// queries past T are not written.
 #include "common.cuh"
+#include "enc_attn_tc.cuh"
 
 namespace {
 
@@ -127,8 +134,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int n_t, int t_valid, float scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out,
+               int bh, int n_t, int t_valid, float scale,
+               cudaStream_t stream) {
   const dim3 grid((n_t + kTQ - 1) / kTQ, bh);
   enc_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, n_t, t_valid, scale);
@@ -144,14 +152,19 @@ extern "C" int gwt_enc_attn(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, bh, n_t, t_valid, scale, s);
+    return launch_fma<float, 64>(q, k, v, out, bh, n_t, t_valid, scale, s);
   if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(q, k, v, out, bh, n_t, t_valid, scale, s);
+    return launch_fma<float, 32>(q, k, v, out, bh, n_t, t_valid, scale, s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, bh, n_t, t_valid, scale,
-                                     s);
+    return gwt_tc::launch<64, true>(q, k, v, out, bh, n_t, t_valid, scale, s);
   if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, out, bh, n_t, t_valid, scale,
-                                     s);
+    return gwt_tc::launch<32, true>(q, k, v, out, bh, n_t, t_valid, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the bf16 tensor-core kernels (K2 and K13 share
+// the layout) for head_dim 32 or 64; chip_smoke.py prints it.
+extern "C" int gwt_enc_attn_tc_smem(int head_dim) {
+  return head_dim == 64 ? gwt_tc::Layout<64>::kBytes
+                        : gwt_tc::Layout<32>::kBytes;
 }

@@ -15,23 +15,31 @@
 // bf16 rounding of p is not invariant to the running max, so the 512-key
 // blocks are part of the function and kept; the TPU kernel's 256-query
 // blocks are not (query rows are independent).  K2 (enc_attn.cu) computes
-// the single-pass function of `_flash_sp_kernel` instead.
+// `_flash_sp_kernel`'s other function: q rounded after scaling, one row
+// max over all keys, p rounded against it and l summed from the rounded p.
 //
 // Bound on an H100: 4 * BH * T_valid^2 * D operations; BH 6, T 2000, D 64
 // is 6.1 GFLOP, 6.2 us at the 989 TFLOP/s bf16 tensor-core rate.  Bytes (q,
 // k, v in, out once) are ~1000x below that: bound by operations.
 //
-// Design (simple first): one block of 256 threads per (64-query tile, bh),
+// bf16 inputs run on the tensor cores (`wgmma`, enc_attn_tc.cuh, SP =
+// false): two warpgroups hold a 512-key block's 64 x 512 f32 scores in
+// registers, 256 keys each, and exchange the block's row max through
+// shared memory.  f32 inputs keep the CUDA-core kernel below (full f32,
+// no TF32).
+//
+// f32 design: one block of 256 threads per (64-query tile, bh),
 // dynamic shared memory holding the tile's q (f32), the scores of one
 // 512-key block (64 x 512 f32 = 128 KB) and one 64-key K or V tile.  Per key
 // block: (A) each thread computes a 4 x 4 micro-tile of q.k for every
 // 64-key tile; (B) each warp runs the softmax update of 8 rows (warp max,
 // exp, warp sum) and overwrites the scores with p, rounded as above;
 // (C) each thread rescales its 4 x (D/16) accumulators and adds p . v over
-// the V tiles.  All arithmetic is f32 FMA on the CUDA cores; `mma`/`wgmma`
-// tiles and TMA staging are later work.  Any T is taken: keys past T load
-// as zeros and are masked, query rows past T are not written.
+// the V tiles.  All arithmetic is f32 FMA on the CUDA cores.  Any T is
+// taken: keys past T load as zeros and are masked, query rows past T are
+// not written.
 #include "common.cuh"
+#include "enc_attn_tc.cuh"
 
 namespace {
 
@@ -54,10 +62,6 @@ __device__ __forceinline__ float round_p(float p);
 template <>
 __device__ __forceinline__ float round_p<float>(float p) {
   return p;
-}
-template <>
-__device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16(p));
 }
 
 template <typename T, int D>
@@ -214,8 +218,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int n_t, int t_valid, float scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out,
+               int bh, int n_t, int t_valid, float scale,
+               cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       enc_attn_long_kernel<T, D>,
@@ -236,14 +241,14 @@ extern "C" int gwt_enc_attn_long(const void* q, const void* k, const void* v,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, bh, n_t, t_valid, scale, s);
+    return launch_fma<float, 64>(q, k, v, out, bh, n_t, t_valid, scale, s);
   if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(q, k, v, out, bh, n_t, t_valid, scale, s);
+    return launch_fma<float, 32>(q, k, v, out, bh, n_t, t_valid, scale, s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, bh, n_t, t_valid, scale,
+    return gwt_tc::launch<64, false>(q, k, v, out, bh, n_t, t_valid, scale,
                                      s);
   if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, out, bh, n_t, t_valid, scale,
+    return gwt_tc::launch<32, false>(q, k, v, out, bh, n_t, t_valid, scale,
                                      s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,16 @@ most 1536 (every registry model, n_audio_ctx 1500) takes K2, the
 single-pass ``_flash_sp_kernel``; a longer one (a checkpoint whose header
 says n_audio_ctx > 1536) takes K13, the blockwise ``_flash_kernel``, whose
 512-key blocks are rounding points of its function.
+
+The three functions differ only where bf16 rounds: ``attention_bh_plain``
+(the JAX package's ``_einsum_attention``), ``attention_bh_sp_plain`` (K2's
+function) and ``attention_bh_blocked_plain`` (K13's).  On the CPU,
+``flash_attention_bh`` takes the einsum for a short T, as the JAX package
+does off the TPU (its einsum off the TPU, ``_flash_sp`` on it); on the card
+K2 computes the single-pass function, and the card checks hold it to
+``attention_bh_sp_plain``.  bf16 inputs run both kernels on the tensor
+cores (``wgmma``, csrc/enc_attn_tc.cuh); f32 inputs run their CUDA-core
+FMA kernels in full f32.
 """
 
 from __future__ import annotations
@@ -36,6 +46,28 @@ def attention_bh_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(keep, s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)
+
+
+def attention_bh_sp_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          t_valid: Optional[int] = None) -> torch.Tensor:
+    """K2's function in torch, with ``_flash_sp_kernel``'s rounding points:
+    q' = q * scale rounded to q's dtype (the scale rounded to it first), s
+    = q' k^T in f32 with masked keys at -1e30, one row max m over all keys,
+    p = exp(s - m) rounded to bf16 when the inputs are bf16, l = the sum of
+    those p in f32, out = (p . v) / max(l, 1e-30) in q's dtype."""
+    t, d = k.shape[1], q.shape[-1]
+    tv = t if t_valid is None else int(t_valid)
+    pdt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    scale = torch.tensor(float(1.0 / (d ** 0.5))).to(q.dtype).float()
+    qs = (q.float() * scale).to(q.dtype).float()
+    s = torch.matmul(qs, k.float().transpose(1, 2))
+    if tv < t:
+        keep = torch.arange(t, device=q.device) < tv
+        s = torch.where(keep, s, torch.full_like(s, _NEG))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(pdt).float()
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p, v.float())
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
 def attention_bh_blocked_plain(q: torch.Tensor, k: torch.Tensor,
@@ -80,6 +112,9 @@ def _check(what: str, q, k, v, tv: int) -> None:
             or not 1 <= tv <= t):
         raise ValueError(f"{what}: q/k/v (BH, T, 32|64) of one dtype "
                          "(f32/bf16), 1 <= t_valid <= T")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{what}: q/k/v must start on 16-byte boundaries "
+                         "(the bf16 kernels copy 16-byte rows)")
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,7 +122,9 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Encoder attention: (BH, T, D) q/k/v (f32 or bf16, D 32 or 64) ->
     (BH, T, D) in q's dtype.  A 512-padded T above 1536 goes to K13
     (``flash_attention_long``); otherwise CUDA tensors launch K2
-    (csrc/enc_attn.cu) and CPU tensors take the plain version."""
+    (csrc/enc_attn.cu: single-pass function, ``attention_bh_sp_plain``)
+    and CPU tensors take the einsum, ``attention_bh_plain``, as the JAX
+    package does off the TPU."""
     bh, t, d = q.shape
     if -(-t // BLOCK_K) * BLOCK_K > SP_MAX_T:
         return flash_attention_long(q, k, v, t_valid)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import blocked_bf16_limit
 from godot_whisper_tpu.decode.filters import FilterContext
 from godot_whisper_tpu.decode.filters import process_logits as jax_process
 from godot_whisper_tpu.decode.filters import \
@@ -72,6 +73,32 @@ def test_attention_plain_matches_tpu_kernel(interpret_mode):
         *(jnp.asarray(x) for x in (q, k, v)), t_valid=500)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
                                rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 32])
+def test_attention_sp_plain_matches_tpu_kernel_bf16(interpret_mode, d):
+    """K2's function in bf16: ``attention_bh_sp_plain`` against the TPU
+    kernel ``_flash_sp_kernel`` itself (interpret mode) at (2, 512, D),
+    t_valid 500, within ``blocked_bf16_limit`` (one bf16 ulp per element,
+    one flipped bf16 rounding of a probability per row, 1e-5).  The
+    control: the function K2's card kernel computed before the tensor-core
+    redesign (f32 to the end, the output rounded once) breaks that limit
+    (shares 2.01 at D 64, 1.95 at D 32, against 0.71 and 0.48)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_rand(rng, 2, 512, d) for _ in range(3))
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = torch.from_numpy(np.array(jax_attention.flash_attention_bh(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        t_valid=500).astype(jnp.float32)))
+    got = A.attention_bh_sp_plain(qt, kt, vt, 500)
+    assert got.dtype == torch.bfloat16
+    lim = blocked_bf16_limit(torch, qt, kt, vt, want, 500)
+    share = float(((got.float() - want).abs() / lim).max())
+    assert share <= 1.0, share
+    old = A.attention_bh_plain(qt.float(), kt.float(), vt.float(),
+                               500).to(torch.bfloat16)
+    ctl = float(((old.float() - want).abs() / lim).max())
+    assert ctl > 1.0, ctl
 
 
 # --------------------------------------------------------------- K3/K4 ----

@@ -90,14 +90,15 @@ def test_blocked_plain_matches_jax_k13(interpret, dtype, bh, t, d):
 def test_blocked_plain_differs_from_single_pass_in_bf16():
     """The 512-key blocks are rounding points of K13's function: at phase
     10's shape (6 heads, T 2048, 2000 valid) in bf16 the single-pass
-    version (K2's) stays within a few bf16 ulps of the blocked one, yet
-    breaks ``blocked_bf16_limit``, the card check's limit for K13, so that
-    check can tell the two functions apart."""
+    version (K2's, ``attention_bh_sp_plain``) stays within a few bf16 ulps
+    of the blocked one, yet breaks ``blocked_bf16_limit``, the card
+    check's limit for K13, so that check can tell the two functions
+    apart."""
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((6, 2048, 64)).astype(
         np.float32)).to(torch.bfloat16) for _ in range(3))
     a = A.attention_bh_blocked_plain(q, k, v, 2000)
-    b = A.attention_bh_plain(q, k, v, 2000)
+    b = A.attention_bh_sp_plain(q, k, v, 2000)
     err = (a.float() - b.float()).abs()
     assert float(err.max()) < 4e-3
     lim = blocked_bf16_limit(torch, q, k, v, a, 2000)
