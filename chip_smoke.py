@@ -10,9 +10,15 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    ptxas's register / spill lines.
 2. kernels -- each kernel against its plain PyTorch version on the card,
    at the tiny.en main-path shapes and at large-v3 widths, with the
-   tolerance stated; then times (CUDA events, median) of kernel, plain
-   version and, where one exists, a single PyTorch library call computing
-   the same function (a yardstick only; the port never calls it).
+   tolerance stated; then times of kernel, plain version and, where one
+   exists, a single PyTorch library call computing the same function (a
+   yardstick only; the port never calls it): CUDA events around one call
+   (median; the wrapper's host time included) and, for the kernel and the
+   library call, the device time of the call captured in a CUDA graph and
+   replayed.  The split-cache decode attentions (K3/K4, K7) are also
+   checked at their edge cases (step 0, a row that attends only the
+   current token, kv_group 8 at large-v3 widths, capacities the slices do
+   not divide) and for bitwise-equal results from call to call.
    Beam search's kernels too: K6 filter + top-K, K7 split prompt / live
    attention (with a permuted row map) and K8 the bounded cache reorder
    (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
@@ -145,6 +151,18 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
+def timed(torch, fn, lib=None, reps: int = 30) -> dict:
+    """Event time (``time_ms``) and CUDA-graph device time (``graph_ms``)
+    of a kernel wrapper ``fn`` and, where one exists, of ``lib``, one
+    PyTorch call computing the same function (a yardstick only)."""
+    r = dict(ms=time_ms(torch, fn, reps), device_ms=graph_ms(torch, fn),
+             library_ms=None, library_device_ms=None)
+    if lib is not None:
+        r.update(library_ms=time_ms(torch, lib, reps),
+                 library_device_ms=graph_ms(torch, lib))
+    return r
+
+
 def tf32_round(torch, x):
     """f32 rounded to TF32's 10-bit mantissa (nearest), as tensor cores
     round GEMM inputs when TF32 is allowed."""
@@ -173,13 +191,16 @@ def blocked_bf16_limit(torch, q, k, v, want, t_valid=None):
     return ulp + 2.0 ** -8 * w_max * v_max + 1e-5
 
 
-def log_ptxas(logs, source: str, kernel: str) -> None:
+def log_ptxas(logs, source: str, kernel: str, dynamic: bool = True) -> None:
     """Print registers, spills and shared memory of every instantiation of
-    the bf16 encoder-attention ``kernel`` (templated on the head size D
-    first) in ``source``'s ``-Xptxas -v`` build log; the dynamic shared
-    memory, which ptxas does not see, comes from the library."""
+    ``kernel`` in ``source``'s ``-Xptxas -v`` build log.  ``dynamic``: the
+    bf16 encoder-attention kernels (templated on the head size D first),
+    whose dynamic shared memory, which ptxas does not see, comes from the
+    library; the split-cache decode kernels use static shared memory
+    only."""
     from godot_whisper_tpu_torch.ops import kernels as K
-    smem_of = K.entry("enc_attn", "gwt_enc_attn_tc_smem", (K.I,))
+    smem_of = (K.entry("enc_attn", "gwt_enc_attn_tc_smem", (K.I,))
+               if dynamic else (lambda d: 0))
     text = logs.get(source, "")
     blocks = re.split(r"(?=ptxas info\s*: Compiling entry function)", text)
     found = False
@@ -227,7 +248,6 @@ def check_kernels(torch, gt, rng, ptx_logs):
     Returns per-kernel records (max error, timings, bound)."""
     from godot_whisper_tpu_torch.audio.mel import frame_counts, pad_audio
     from godot_whisper_tpu_torch.ops import attention as A
-    from godot_whisper_tpu_torch.ops import decode_attention as D
     from godot_whisper_tpu_torch.ops import filter_sample as FS
     from godot_whisper_tpu_torch.ops import mel_kernel as M
     from godot_whisper_tpu_torch.audio.mel import mel_filterbank
@@ -283,13 +303,11 @@ def check_kernels(torch, gt, rng, ptx_logs):
             ops = f * (400 * 201 * 4 + 201 * 3 + n_mels * 201 * 2)
             nbytes = L * 2 + basis.numel() * 4 + filt.numel() * 4 \
                 + got.numel() * 4
-            recs["mel"] = dict(err=e_max, bound=bound(nbytes, ops, PEAK_F32),
-                               ms=time_ms(torch, lambda: M.log_mel_raw(
-                                   a16, basis, filt)),
-                               plain_ms=time_ms(torch, lambda:
-                                                M.log_mel_raw_plain(
-                                                    a16, basis, filt)),
-                               library_ms=None)
+            recs["mel"] = dict(
+                err=e_max, bound=bound(nbytes, ops, PEAK_F32),
+                plain_ms=time_ms(torch, lambda: M.log_mel_raw_plain(
+                    a16, basis, filt)),
+                **timed(torch, lambda: M.log_mel_raw(a16, basis, filt)))
 
     # ---- K2 encoder attention: (B*H, 1536, 64), t_valid 1500.  In bf16
     # the tensor-core kernel computes _flash_sp_kernel's single-pass
@@ -350,76 +368,16 @@ def check_kernels(torch, gt, rng, ptx_logs):
                 library_ms=time_ms(torch, lambda: sdpa(q4, k4, v4,
                                                        attn_mask=mask)))
             r = recs["enc_attn"]
-            dev_k = graph_ms(torch, lambda: A.flash_attention_bh(
+            r["device_ms"] = graph_ms(torch, lambda: A.flash_attention_bh(
                 q, k, v, t_valid=1500))
-            dev_l = graph_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
+            r["library_device_ms"] = graph_ms(
+                torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
             log(f"  timed bf16: kernel {r['ms']:.4f} ms, bound "
                 f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
                 f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
-                f"device time (CUDA graph replay): kernel {dev_k:.4f} ms, "
-                f"SDPA {dev_l:.4f} ms")
-
-    # ---- K3/K4 decode attention over merged-head caches
-    def dec_case(name, S, H, B, kv_group, C, L, lo_vals, split, hi, layer):
-        g = B // kv_group
-        q = tens(B, S, dtype=torch.bfloat16)
-        k = tens(L, g, C, S, dtype=torch.bfloat16)
-        v = tens(L, g, C, S, dtype=torch.bfloat16)
-        lo = torch.tensor(lo_vals, dtype=torch.int32, device=dev)
-        kw = dict(split=split, n_head=H, kv_group=kv_group, layer=layer)
-        got = D.decode_attention(q, k, v, lo, hi, **kw)
-        sync()
-        want = D.decode_attention_plain(q, k, v, lo, hi, **kw)
-        e_max = float((got - want).abs().max())
-        log(f"K3/K4 decode_attn [{name}] q {tuple(q.shape)} kv "
-            f"{tuple(k.shape)} kv_group {kv_group}: max_abs_err {e_max:.3e} "
-            "(tol 1e-4: same bf16 inputs, f32 math in another order)")
-        if not e_max < 1e-4:
-            fail(f"decode attention [{name}] disagrees with its plain "
-                 "version")
-        return q, k, v, lo, kw, e_max
-
-    # tiny.en main path: prompt capacity 232, cache 512 slots, step 100
-    lo_self = [1, 1, 1, 1, 1]
-    self_case = dec_case("tiny.en self", 384, 6, 5, 1, 512, 4, lo_self,
-                         232, 333, 2)
-    cross5 = dec_case("tiny.en cross", 384, 6, 5, 5, 1536, 4, [1500] * 5,
-                      1536, 0, 3)
-    dec_case("tiny.en cross kv_group 1", 384, 6, 1, 1, 1536, 4, [1500],
-             1536, 0, 1)
-    dec_case("large-v3 cross", 1280, 20, 5, 5, 1536, 2, [1500] * 5, 1536,
-             0, 1)
-    dec_case("large-v3 self", 1280, 20, 5, 1, 512, 2, [3, 5, 7, 9, 11],
-             232, 300, 1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # slots each query row attends (operations) and K/V slots read (bytes)
-    for key, (q, k, v, lo, kw, e_max), row_slots, kv_slots, hi in (
-            ("decode_attn_k3", self_case, 5 * 102, 5 * 102, 333),
-            ("decode_attn_k4", cross5, 5 * 1500, 1500, 0)):
-        B, S = q.shape
-        H, kvg, layer = kw["n_head"], kw["kv_group"], kw["layer"]
-        C = k.shape[2]
-        dh = S // H
-        nbytes = 2 * kv_slots * S * 2 + B * S * 2 + B * S * 4
-        ops = 4 * row_slots * S
-        ql = q.view(B, H, 1, dh)
-        kl = k[layer].view(-1, C, H, dh).transpose(1, 2)
-        vl = v[layer].view(-1, C, H, dh).transpose(1, 2)
-        if kvg > 1:
-            kl = kl.expand(B, H, C, dh)
-            vl = vl.expand(B, H, C, dh)
-        slot = torch.arange(C, device=dev)
-        mask = ((slot[None] < lo[:, None]) | ((slot[None] >= kw["split"])
-                                             & (slot[None] < hi)))
-        mask = mask[:, None, None, :]
-        recs[key] = dict(
-            err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
-            ms=time_ms(torch, lambda: D.decode_attention(q, k, v, lo, hi,
-                                                         **kw)),
-            plain_ms=time_ms(torch, lambda: D.decode_attention_plain(
-                q, k, v, lo, hi, **kw)),
-            library_ms=time_ms(torch, lambda: sdpa(ql, kl, vl,
-                                                   attn_mask=mask)))
+                f"device time (CUDA graph replay): kernel "
+                f"{r['device_ms']:.4f} ms, SDPA "
+                f"{r['library_device_ms']:.4f} ms")
 
     # ---- K5 filter + sample: 5 rows of raw logits; argmax and sampling
     # rows, initial and mid-sequence timestamp states
@@ -462,23 +420,22 @@ def check_kernels(torch, gt, rng, ptx_logs):
             ops = 5 * V * 30
             recs["filter_sample"] = dict(
                 err=worst, bound=bound(nbytes, ops, PEAK_F32),
-                ms=time_ms(torch, lambda: FS.fused_filter_sample(
-                    logits, sup, state, **kw)),
                 plain_ms=time_ms(torch, lambda:
                                  FS.fused_filter_sample_plain(
                                      logits, sup, state, **kw)),
-                library_ms=None)
+                **timed(torch, lambda: FS.fused_filter_sample(
+                    logits, sup, state, **kw)))
     return recs
 
 
 def check_beam_kernels(torch, rng):
-    """K6, K7 and K8 against their plain versions at the tiny.en beam path's
-    shapes and large-v3 widths; then their times."""
+    """K6 and K8 against their plain versions at the tiny.en beam path's
+    shapes and large-v3 widths; then their times (K7 is
+    ``check_split_attention``'s)."""
     from godot_whisper_tpu_torch.models.config import get_config
     from godot_whisper_tpu_torch.ops import decode_attention as D
     from godot_whisper_tpu_torch.ops import filter_sample as FS
     from godot_whisper_tpu_torch.ops import kv_reorder as R
-    from godot_whisper_tpu_torch.ops import split_attention as SA
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -529,63 +486,10 @@ def check_beam_kernels(torch, rng):
             ops = 5 * V * (30 + 2 * 5)
             recs["filter_topk"] = dict(
                 err=worst, bound=bound(nbytes, ops, PEAK_F32),
-                ms=time_ms(torch, lambda: FS.fused_filter_topk(
-                    logits, sup, state, **kw)),
                 plain_ms=time_ms(torch, lambda: FS.fused_filter_topk_plain(
                     logits, sup, state, **kw)),
-                library_ms=None)
-
-    # ---- K7 split prompt / live attention: one stream of 5 beams, prompt
-    # capacity 256 (prompt_pad 232), live capacity 256, a permuted row map
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for S, H, L, tag in ((384, 6, 4, "tiny.en"), (1280, 20, 2, "large-v3")):
-        G, KB, CP, NL, lo_v, hi_live, layer = 1, 5, 256, 256, 120, 100, L - 1
-        B = G * KB
-        q = tens(B, S, dtype=torch.bfloat16)
-        kp, vp = (tens(L, G, CP, S, dtype=torch.bfloat16) for _ in range(2))
-        kl, vl = (tens(L, B, NL, S, dtype=torch.bfloat16) for _ in range(2))
-        lo = torch.full((B,), lo_v, dtype=torch.int32, device=dev)
-        rowmap = torch.from_numpy(rng.integers(0, KB, (B, NL)).astype(
-            np.int32)).to(dev)
-        kw = dict(n_head=H, kv_group=KB, layer=layer, rowmap=rowmap)
-        got = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
-        sync()
-        want = SA.split_beam_attention_plain(
-            q.float(), kp.float(), vp.float(), kl.float(), vl.float(), lo,
-            hi_live, **kw)
-        e_max = float((got - want).abs().max())
-        log(f"K7 split_attn [{tag}] q {tuple(q.shape)} prompt "
-            f"{tuple(kp.shape)} live {tuple(kl.shape)} lo {lo_v} hi_live "
-            f"{hi_live}: max_abs_err {e_max:.3e} (tol 1e-4: the plain "
-            "version in f32 on the same bf16 inputs, sums in another order)")
-        if not e_max < 1e-4:
-            fail(f"K7 split attention [{tag}] disagrees with its plain "
-                 "version")
-        if tag == "tiny.en":
-            # the same keys gathered into one cache per beam: the library
-            # yardstick's input (built outside its timing)
-            rows = (torch.arange(B, device=dev)[:, None] // KB * KB
-                    + rowmap[:, :hi_live].long())
-            t = torch.arange(hi_live, device=dev)[None]
-            dh = S // H
-
-            def heads(p_, l_):
-                full = torch.cat([p_[layer, :, :lo_v].expand(B, lo_v, S),
-                                  l_[layer][rows, t]], dim=1)
-                return full.view(B, -1, H, dh).transpose(1, 2)
-            kf, vf = heads(kp, kl), heads(vp, vl)
-            qf = q.view(B, H, 1, dh)
-            nbytes = (2 * G * lo_v * S * 2 + 2 * B * hi_live * S * 2
-                      + B * S * 2 + B * S * 4 + B * hi_live * 4 + B * 4)
-            ops = 4 * B * (lo_v + hi_live) * S
-            recs["split_attn"] = dict(
-                err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
-                ms=time_ms(torch, lambda: SA.split_beam_attention(
-                    q, kp, vp, kl, vl, lo, hi_live, **kw)),
-                plain_ms=time_ms(torch, lambda:
-                                 SA.split_beam_attention_plain(
-                                     q, kp, vp, kl, vl, lo, hi_live, **kw)),
-                library_ms=time_ms(torch, lambda: sdpa(qf, kf, vf)))
+                **timed(torch, lambda: FS.fused_filter_topk(
+                    logits, sup, state, **kw)))
 
     # ---- K8 bounded reorder at phase 6's cache (large-v3 widths, 3 text
     # layers, beam 8, capacity 512, 332 live slots) and at tiny.en's; the
@@ -619,13 +523,227 @@ def check_beam_kernels(torch, rng):
             nbytes = 2 * 2 * L * B * hi * S * 2 + B * 4
             recs["kv_reorder"] = dict(
                 err=0.0, bound=bound(nbytes, 0, PEAK_BF16),
-                ms=time_ms(torch, lambda: R.reorder_kv_live(
-                    k, v, src, hi, out=out)),
                 plain_ms=time_ms(torch, lambda: R.reorder_kv_live_plain(
                     k, v, src, hi)),
-                library_ms=time_ms(torch, lambda: (
-                    torch.index_select(k, 1, src),
-                    torch.index_select(v, 1, src))))
+                **timed(torch, lambda: R.reorder_kv_live(
+                    k, v, src, hi, out=out), lambda: (
+                        torch.index_select(k, 1, src),
+                        torch.index_select(v, 1, src))))
+    return recs
+
+
+def check_decode_attention(torch, rng, ptx_logs):
+    """K3/K4 against the plain version at the main path's tiny.en self and
+    cross shapes, at large-v3 widths and at the split-cache edge cases:
+    step 0, a row whose only valid slot is the current token, kv_group 8 at
+    large-v3 widths (8 x 20 = 160 lanes), a C that the slices do not
+    divide.  Two calls must give bitwise-equal outputs (the merge runs in
+    split order).  Then event and CUDA-graph device times of K3 and K4 at
+    the main path's shapes, and of K4 at large-v3 widths, beside SDPA's
+    with a boolean key mask (a yardstick; the port never calls it)."""
+    from godot_whisper_tpu_torch.ops import decode_attention as D
+    from godot_whisper_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_sms = K.sm_count(torch.cuda.current_device())
+    log_ptxas(ptx_logs, "decode_attn", "decode_split_kernel", dynamic=False)
+
+    def tens(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    def case(name, S, H, B, kv_group, C, L, lo_vals, split, hi, layer):
+        g = B // kv_group
+        q, k, v = tens(B, S), tens(L, g, C, S), tens(L, g, C, S)
+        lo = torch.tensor(lo_vals, dtype=torch.int32, device=dev)
+        kw = dict(split=split, n_head=H, kv_group=kv_group, layer=layer)
+        got = D.decode_attention(q, k, v, lo, hi, **kw)
+        again = D.decode_attention(q, k, v, lo, hi, **kw)
+        sync()
+        want = D.decode_attention_plain(q, k, v, lo, hi, **kw)
+        e_max = float((got - want).abs().max())
+        same = bool(torch.equal(got, again))
+        sl, (n_split,) = D.split_plan(((C, 1),), g * H, n_sms)
+        log(f"K3/K4 decode_attn [{name}] q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)} kv_group {kv_group}, lo {lo_vals[:2]}.., "
+            f"split {split}, hi {hi}: grid {g} x {H} x n_split {n_split} "
+            f"(slices of {sl} on {n_sms} SMs); max_abs_err {e_max:.3e} (tol "
+            "1e-4: same bf16 inputs, f32 math in another order); two calls "
+            f"bitwise equal {same}")
+        if not e_max < 1e-4:
+            fail(f"decode attention [{name}] disagrees with its plain "
+                 "version")
+        if not same:
+            fail(f"decode attention [{name}] is not bitwise repeatable")
+        return dict(q=q, k=k, v=v, lo=lo, hi=hi, kw=kw, err=e_max)
+
+    # tiny.en main path: prompt capacity 232, cache 512 slots, step 100
+    k3 = case("tiny.en self, step 100", 384, 6, 5, 1, 512, 4, [1] * 5, 232,
+              333, 2)
+    k4 = case("tiny.en cross", 384, 6, 5, 5, 1536, 4, [1500] * 5, 1536, 0, 3)
+    case("tiny.en cross kv_group 1", 384, 6, 1, 1, 1536, 4, [1500], 1536, 0,
+         1)
+    wide = case("large-v3 cross", 1280, 20, 5, 5, 1536, 2, [1500] * 5, 1536,
+                0, 1)
+    case("large-v3 self", 1280, 20, 5, 1, 512, 2, [3, 5, 7, 9, 11], 232, 300,
+         1)
+    case("tiny.en self, step 0", 384, 6, 5, 1, 512, 4, [1] * 5, 232, 233, 2)
+    case("tiny.en self, rows 0-1 attend only the current token", 384, 6, 5,
+         1, 512, 4, [0, 0, 1, 4, 9], 232, 233, 1)
+    case("large-v3 cross, kv_group 8 (160 lanes)", 1280, 20, 8, 8, 1536, 2,
+         [1500] * 8, 1536, 0, 1)
+    case("tiny.en cross, C 1000 (the slices do not divide C)", 384, 6, 5, 5,
+         1000, 2, [990] * 5, 1000, 0, 1)
+
+    def library(c):
+        q, k, v, lo, hi, kw = (c[n] for n in ("q", "k", "v", "lo", "hi",
+                                              "kw"))
+        B, S = q.shape
+        H, kvg, layer = kw["n_head"], kw["kv_group"], kw["layer"]
+        C, dh = k.shape[2], S // H
+        ql = q.view(B, H, 1, dh)
+        kl = k[layer].view(-1, C, H, dh).transpose(1, 2)
+        vl = v[layer].view(-1, C, H, dh).transpose(1, 2)
+        if kvg > 1:
+            kl = kl.expand(B, H, C, dh)
+            vl = vl.expand(B, H, C, dh)
+        slot = torch.arange(C, device=dev)
+        mask = ((slot[None] < lo[:, None])
+                | ((slot[None] >= kw["split"]) & (slot[None] < hi)))
+        mask = mask[:, None, None, :]
+        return lambda: sdpa(ql, kl, vl, attn_mask=mask)
+
+    recs = {}
+    # slots each query row attends (operations) and K/V slots read (bytes)
+    for key, c, row_slots, kv_slots in (
+            ("decode_attn_k3", k3, 5 * 102, 5 * 102),
+            ("decode_attn_k4", k4, 5 * 1500, 1500),
+            ("large-v3 cross", wide, 5 * 1500, 1500)):
+        B, S = c["q"].shape
+        nbytes = 2 * kv_slots * S * 2 + B * S * 2 + B * S * 4
+        ops = 4 * row_slots * S
+
+        def run(c=c):
+            return D.decode_attention(c["q"], c["k"], c["v"], c["lo"],
+                                      c["hi"], **c["kw"])
+        r = dict(err=c["err"], bound=bound(nbytes, ops, PEAK_BF16),
+                 plain_ms=time_ms(torch, lambda c=c: D.decode_attention_plain(
+                     c["q"], c["k"], c["v"], c["lo"], c["hi"], **c["kw"])),
+                 **timed(torch, run, library(c)))
+        log(f"  timed [{key}]: kernel {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+            f"({r['bound'][1]}, {r['bound'][0] / r['device_ms']:.3f} of the "
+            f"device time); SDPA {r['library_ms']:.4f} ms, device "
+            f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
+        if key.startswith("decode_attn"):
+            recs[key] = r
+    return recs
+
+
+def check_split_attention(torch, rng, ptx_logs):
+    """K7 against its plain version at the beam path's tiny.en and large-v3
+    shapes (one stream of 5 beams, prompt capacity 256, live capacity 256,
+    a permuted row map) and at the split-cache edge cases: the live cache
+    at step 0 with two beams whose prompts are empty (their only valid
+    slot is the current token), kv_group 8 at large-v3 widths, capacities
+    the slices do not divide.  Two calls must give bitwise-equal outputs.
+    Then event and device times at both widths beside SDPA's over the same
+    keys gathered into one cache per beam beforehand (a yardstick)."""
+    from godot_whisper_tpu_torch.ops import kernels as K
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_sms = K.sm_count(torch.cuda.current_device())
+    log_ptxas(ptx_logs, "split_attn", "split_beam_kernel", dynamic=False)
+
+    def tens(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    def case(name, S, H, L, G, KB, CP, NL, lo_vals, hi_live):
+        B, layer = G * KB, L - 1
+        q = tens(B, S)
+        kp, vp = tens(L, G, CP, S), tens(L, G, CP, S)
+        kl, vl = tens(L, B, NL, S), tens(L, B, NL, S)
+        lo = torch.tensor(lo_vals, dtype=torch.int32, device=dev)
+        rowmap = torch.from_numpy(rng.integers(0, KB, (B, NL)).astype(
+            np.int32)).to(dev)
+        kw = dict(n_head=H, kv_group=KB, layer=layer, rowmap=rowmap)
+        got = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+        again = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+        sync()
+        want = SA.split_beam_attention_plain(
+            q.float(), kp.float(), vp.float(), kl.float(), vl.float(), lo,
+            hi_live, **kw)
+        e_max = float((got - want).abs().max())
+        same = bool(torch.equal(got, again))
+        sl, (n_p, n_l) = SA.split_plan(((CP, 1), (NL, KB)), G * H, n_sms)
+        log(f"K7 split_attn [{name}] q {tuple(q.shape)} prompt "
+            f"{tuple(kp.shape)} live {tuple(kl.shape)} lo {lo_vals[:2]}.., "
+            f"hi_live {hi_live}: grid {G} x {H} x n_split {n_p + KB * n_l} "
+            f"({n_p} prompt + {KB} x {n_l} live slices of {sl}); max_abs_err "
+            f"{e_max:.3e} (tol 1e-4: the plain version in f32 on the same "
+            f"bf16 inputs, sums in another order); two calls bitwise equal "
+            f"{same}")
+        if not e_max < 1e-4:
+            fail(f"K7 split attention [{name}] disagrees with its plain "
+                 "version")
+        if not same:
+            fail(f"K7 split attention [{name}] is not bitwise repeatable")
+        return dict(q=q, kp=kp, vp=vp, kl=kl, vl=vl, lo=lo, kw=kw,
+                    hi_live=hi_live, err=e_max)
+
+    tiny = case("tiny.en beam 5", 384, 6, 4, 1, 5, 256, 256, [120] * 5, 100)
+    wide = case("large-v3 beam 5", 1280, 20, 2, 1, 5, 256, 256, [120] * 5,
+                100)
+    case("tiny.en, live step 0, beams 0-1 with empty prompts", 384, 6, 4, 1,
+         5, 256, 256, [0, 0, 120, 120, 120], 1)
+    case("large-v3 beam 8 (160 lanes)", 1280, 20, 2, 1, 8, 256, 256,
+         [120] * 8, 100)
+    case("tiny.en, 2 groups, CP 232 and NL 200 (the slices do not divide "
+         "them)", 384, 6, 2, 2, 5, 232, 200, [100] * 5 + [37] * 5, 150)
+
+    recs = {}
+    for tag, c in (("tiny.en", tiny), ("large-v3", wide)):
+        q, kp, vp, kl, vl, lo, kw, hi_live = (c[n] for n in (
+            "q", "kp", "vp", "kl", "vl", "lo", "kw", "hi_live"))
+        B, S = q.shape
+        G, KB, H, layer = 1, kw["kv_group"], kw["n_head"], kw["layer"]
+        lo_v = int(lo[0])
+        # the same keys gathered into one cache per beam: the library
+        # yardstick's input (built outside its timing)
+        rows = (torch.arange(B, device=dev)[:, None] // KB * KB
+                + kw["rowmap"][:, :hi_live].long())
+        t = torch.arange(hi_live, device=dev)[None]
+        dh = S // H
+
+        def heads(p_, l_):
+            full = torch.cat([p_[layer, :, :lo_v].expand(B, lo_v, S),
+                              l_[layer][rows, t]], dim=1)
+            return full.view(B, -1, H, dh).transpose(1, 2).contiguous()
+        kf, vf = heads(kp, kl), heads(vp, vl)
+        qf = q.view(B, H, 1, dh)
+        nbytes = (2 * G * lo_v * S * 2 + 2 * B * hi_live * S * 2
+                  + B * S * 2 + B * S * 4 + B * hi_live * 4 + B * 4)
+        ops = 4 * B * (lo_v + hi_live) * S
+        r = dict(err=c["err"], bound=bound(nbytes, ops, PEAK_BF16),
+                 plain_ms=time_ms(torch, lambda: SA.split_beam_attention_plain(
+                     q, kp, vp, kl, vl, lo, hi_live, **kw)),
+                 **timed(torch, lambda: SA.split_beam_attention(
+                     q, kp, vp, kl, vl, lo, hi_live, **kw),
+                     lambda: sdpa(qf, kf, vf)))
+        log(f"  timed [K7 {tag}]: kernel {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+            f"({r['bound'][1]}, {r['bound'][0] / r['device_ms']:.3f} of the "
+            f"device time); SDPA over the gathered keys {r['library_ms']:.4f}"
+            f" ms, device {r['library_device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms")
+        if tag == "tiny.en":
+            recs["split_attn"] = r
     return recs
 
 
@@ -694,13 +812,15 @@ def check_quant_kernels(torch, rng):
             nbytes = w_bytes + m * s * 2 + m * o * 4
             r = recs[key] = dict(
                 err=e_max, bound=bound(nbytes, 2 * m * s * o, PEAK_BF16),
-                ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
-                library_ms=time_ms(torch, lambda: torch.mm(
+                plain_ms=time_ms(torch, plain),
+                **timed(torch, run, lambda: torch.mm(
                     x, w_bf16, out_dtype=torch.float32)))
-            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us, bound "
+            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us (device "
+                f"{r['device_ms'] * 1e3:.2f} us), bound "
                 f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
                 f"plain {r['plain_ms'] * 1e3:.2f} us, torch.mm on bf16 W "
-                f"{r['library_ms'] * 1e3:.2f} us")
+                f"{r['library_ms'] * 1e3:.2f} us (device "
+                f"{r['library_device_ms'] * 1e3:.2f} us)")
 
     qmm_case("int8", "oi", 5, 384, 51864, "tiny.en logits", "qmatmul")
     qmm_case("int8", "io", 5, 384, 1152, "tiny.en wqkv")
@@ -768,13 +888,15 @@ def check_quant_kernels(torch, rng):
                       + kg * s * 2 + kg * s * 4 + kg * 4)
             r = recs[key] = dict(
                 err=e_max, bound=bound(nbytes, 4 * kg * 1500 * s, PEAK_BF16),
-                ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
-                library_ms=time_ms(torch, lambda: sdpa(qd, kd, vd,
-                                                       attn_mask=mask)))
-            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us, bound "
+                plain_ms=time_ms(torch, plain),
+                **timed(torch, run, lambda: sdpa(qd, kd, vd,
+                                                 attn_mask=mask)))
+            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us (device "
+                f"{r['device_ms'] * 1e3:.2f} us), bound "
                 f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
                 f"plain {r['plain_ms'] * 1e3:.2f} us, SDPA over dequantized "
-                f"bf16 K/V {r['library_ms'] * 1e3:.2f} us")
+                f"bf16 K/V {r['library_ms'] * 1e3:.2f} us (device "
+                f"{r['library_device_ms'] * 1e3:.2f} us)")
 
     xattn_case(384, 6, 5, 4, True, "tiny.en kv_group 5", "xattn_packed")
     xattn_case(384, 6, 5, 4, False, "tiny.en kv_group 5")
@@ -836,21 +958,16 @@ def check_long_attention(torch, rng, ptx_logs):
         r = dict(err=e_max,
                  bound=bound(4 * bh * T * D * 2, 4 * bh * tv * tv * D,
                              PEAK_BF16),
-                 ms=time_ms(torch, lambda: A.flash_attention_long(
-                     q, k, v, t_valid=tv), reps=10),
                  plain_ms=time_ms(torch, lambda: A.attention_bh_blocked_plain(
                      q, k, v, tv), reps=10),
-                 library_ms=time_ms(torch, lambda: sdpa(q4, k4, v4,
-                                                        attn_mask=mask),
-                                    reps=10))
-        dev_k = graph_ms(torch, lambda: A.flash_attention_long(
-            q, k, v, t_valid=tv))
-        dev_l = graph_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
+                 **timed(torch, lambda: A.flash_attention_long(
+                     q, k, v, t_valid=tv), lambda: sdpa(
+                         q4, k4, v4, attn_mask=mask), reps=10))
         log(f"  timed bf16: kernel {r['ms']:.4f} ms, bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
-            f"device time (CUDA graph replay): kernel {dev_k:.4f} ms, SDPA "
-            f"{dev_l:.4f} ms")
+            f"device time (CUDA graph replay): kernel {r['device_ms']:.4f} "
+            f"ms, SDPA {r['library_device_ms']:.4f} ms")
         if bh == 6:
             recs["enc_attn_long"] = r
         del qf, kf, vf, q, k, v, got, want, err, lim
@@ -1137,7 +1254,9 @@ def main() -> int:
     # ---- phase 2: kernels vs plain versions
     rng = np.random.default_rng(0)
     recs = check_kernels(torch, gt, rng, logs)
+    recs.update(check_decode_attention(torch, rng, logs))
     recs.update(check_beam_kernels(torch, rng))
+    recs.update(check_split_attention(torch, rng, logs))
     recs.update(check_quant_kernels(torch, rng))
     recs.update(check_long_attention(torch, rng, logs))
 
@@ -1306,9 +1425,10 @@ def main() -> int:
     # K9's second main-path shape, the 1500-row cross-K/V projection: its
     # numbers go to the log, the kernels line keeps one entry per kernel
     xk = recs.pop("qmatmul_xk")
-    log(f"K9 io cross-K (1500, 384) x (384, 384): ms {xk['ms']}, plain_ms "
-        f"{xk['plain_ms']}, bound_ms {xk['bound'][0]} ({xk['bound'][1]}), "
-        f"torch.mm bf16 ms {xk['library_ms']}")
+    log(f"K9 io cross-K (1500, 384) x (384, 384): ms {xk['ms']}, device_ms "
+        f"{xk['device_ms']}, plain_ms {xk['plain_ms']}, bound_ms "
+        f"{xk['bound'][0]} ({xk['bound'][1]}), torch.mm bf16 ms "
+        f"{xk['library_ms']}, library_device_ms {xk['library_device_ms']}")
     out = []
     for key, r in recs.items():
         b_ms, b_by = r["bound"]
@@ -1316,9 +1436,10 @@ def main() -> int:
                     "source": "godot_whisper_tpu_torch/csrc/" + names[key][1],
                     "replaces": TPU_OPS + tpu[key],
                     "launches": n_launch[key], "max_abs_err": r["err"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": r["library_ms"]})
+                    "ms": r["ms"], "device_ms": r["device_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": r["library_ms"],
+                    "library_device_ms": r["library_device_ms"]})
     print(json.dumps({"kernels": out}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

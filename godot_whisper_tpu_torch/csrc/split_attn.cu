@@ -1,5 +1,5 @@
-// K7: beam self-attention over a split prompt / live cache, one online
-// softmax across both.
+// K7: beam self-attention over a split prompt / live cache, one softmax
+// across both, split across the cache axes.
 //
 // Replaces the TPU kernel `_split_beam_kernel` of
 // godot_whisper_tpu/ops/split_attention.py (reached through
@@ -13,12 +13,13 @@
 //   valid below hi_live, and beam b's slot t lives in row
 //   g * R + rowmap[b, t] of its group (the zero-copy beam merge permutes
 //   this (B, NL) map instead of moving cache bytes);
-//   per-head softmax of q . k / sqrt(D) over both regions; out (B, S) f32.
+//   per-head softmax of q . k / sqrt(D) over both regions in f32 with f32
+//   p; out (B, S) f32.
 //
 // Both caches enter as the full stacked tensors, the layer selected by
 // pointer offset.  The TPU kernel's 128-lane packing of R x H heads into one
 // score tile and its one-hot row-map matmul are Mosaic workarounds: here a
-// block indexes its head's D columns and reads the row map directly.
+// CTA indexes its head's D columns and reads the row map directly.
 //
 // Bound on an H100: bytes.  The group's prompt K/V up to max(lo) once and
 // every beam's live K/V up to hi_live: 2 * max(lo) * S + 2 * B * hi_live * S
@@ -26,219 +27,196 @@
 // slots) under 2 MB per layer, under 1 us at 3.35 TB/s.  The math is a few
 // FLOP per byte.
 //
-// Design: grid (G, n_head), 128 threads, tiles of 64 slots staged in shared
-// memory as f32.  Phase 1 streams the group's prompt tiles [0, max lo) once
-// and scores all R beams against each tile (as K3/K4 do), masking c >= lo[b].
-// Phase 2 walks the live slots [0, hi_live) beam by beam, gathering each
-// tile's rows through the row map.  One online-softmax state (m, l) and one
-// accumulator per (beam, dim) carry across both phases.  Phase 2 reads a
-// live row once per beam that maps to it, not once per group: simple first.
-#include "common.cuh"
+// Design (decode_split.cuh): grid (G, n_head, n_p + R * n_l), 128 threads.
+// The concatenated range -- prompt slots [0, max lo), then live slots
+// [0, hi_live) -- is cut into slices whose length and counts the wrapper
+// picks from the capacities CP and NL (never from hi_live).  Splits
+// [0, n_p) are prompt slices: a CTA scores all R beams against each prompt
+// K/V row it loads, as K3/K4 do.  Split n_p + r * n_l + j is live slice j
+// of beam r: its CTA gathers that beam's rows through the row map.  The
+// pair's last CTA merges, for each beam, the prompt partials and then that
+// beam's live partials, in split order.  Slices past max lo or hi_live are
+// never loaded.
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kTC = 64;  // slots per tile (two per lane in the softmax)
-constexpr int kThreads = 128;
-constexpr int kMaxGroup = 8;  // MAX_DECODERS
+using dsplit::kChunk;
+using dsplit::kThreads;
 
-// Online-softmax update of one beam from its tile scores p[0, kTC), by one
-// warp: p becomes exp(s - m_new) (exactly 0 on masked slots, as
-// exp(-1e30 - m) is), and m, l and corr (the factor on the old sums) are
-// updated in shared memory.
-__device__ __forceinline__ void online_update(float* p, float* m, float* l,
-                                              float* corr, int lane) {
-  const float a = p[lane], b = p[lane + 32];
-  const float m_old = *m;
-  const float m_new = fmaxf(m_old, warp_max(fmaxf(a, b)));
-  const float pa = a > 0.5f * GWT_NEG ? expf(a - m_new) : 0.f;
-  const float pb = b > 0.5f * GWT_NEG ? expf(b - m_new) : 0.f;
-  p[lane] = pa;
-  p[lane + 32] = pb;
-  const float ps = warp_sum(pa + pb);
-  if (lane == 0) {
-    const float c = expf(m_old - m_new);
-    *corr = c;
-    *l = *l * c + ps;
-    *m = m_new;
+// Prompt splits hold every beam; live split n_p + r * n_l + j only beam r:
+// beam r's partials are the prompt splits, then its own live splits.
+struct SplitRows {
+  int n_p, n_l;
+  __device__ __forceinline__ int count() const { return n_p + n_l; }
+  __device__ __forceinline__ int index(int k, int r) const {
+    return k < n_p ? k : n_p + r * n_l + (k - n_p);
   }
-}
+};
 
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
     split_beam_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                       const T* __restrict__ vp, const T* __restrict__ kl,
                       const T* __restrict__ vl, const int* __restrict__ lo,
                       const int* __restrict__ rowmap, float* __restrict__ out,
-                      int layer, int G, int CP, int NL, int S, int R,
-                      int hi_live, float scale) {
-  constexpr int kPer = kMaxGroup * D / kThreads;  // (beam, dim) pairs / thread
-  __shared__ float s_k[kTC][D + 1];  // padded: conflict-free column reads
-  __shared__ float s_v[kTC][D];
-  __shared__ float s_q[kMaxGroup][D];
-  __shared__ float s_p[kMaxGroup][kTC];
-  __shared__ float s_m[kMaxGroup], s_l[kMaxGroup], s_corr[kMaxGroup];
-  __shared__ int s_lo[kMaxGroup];
-  __shared__ int s_row[kTC];  // live row of each slot of the tile
-  __shared__ int s_end;
+                      float* __restrict__ ws, int* __restrict__ tickets,
+                      int layer, int G, int CP, int NL, int S, int hi_live,
+                      float scale, int slice, int n_p, int n_l) {
+  using L = dsplit::Lay<T, D>;
+  __shared__ dsplit::Smem<D> sm;
+  const int g = blockIdx.x, h = blockIdx.y, i = blockIdx.z, H = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int B = G * R, n_split = n_p + R * n_l;
+  const int d0 = (lane % L::kLpr) * L::kVec;
+  const size_t pair0 = ((size_t)g * H + h) * n_split;
+  float* ws_acc = ws;
+  float* ws_ml = ws + (size_t)G * H * n_split * R * D;
 
-  const int g = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int B = G * R;
-  const size_t p_base = ((size_t)layer * G + g) * CP * S + h * D;
-
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    s_q[r][d] = to_f32(q[(size_t)(g * R + r) * S + h * D + d]);
-  }
-  if (tid == 0) {
-    int end = 0;
+  if (i < n_p) {
+    // ---- a prompt slice: all R beams against each prompt K/V row (q's
+    // loads go out beside lo's)
+    float qv[R][L::kVec];
+    dsplit::load_q<T, D, R>(q, g * R, S, h * D + d0, qv);
+    int lo_r[R];
+    int lo_max = 0;
+#pragma unroll
     for (int r = 0; r < R; ++r) {
-      s_lo[r] = lo[g * R + r];
-      s_m[r] = GWT_NEG;
-      s_l[r] = 0.f;
-      end = max(end, s_lo[r]);
+      lo_r[r] = lo[g * R + r];
+      lo_max = max(lo_max, lo_r[r]);
     }
-    s_end = min(end, CP);
-  }
-  float acc[kPer];
+    lo_max = min(lo_max, CP);
+    const int a = i * slice, b = min(a + slice, CP);
+    if (a < lo_max) {
+      dsplit::RowState<R, L::kVec> st;
+      st.init();
+      const size_t base = ((size_t)layer * G + g) * CP * S + h * D + d0;
+      auto chunk_live = [&](int c0, int) { return c0 < lo_max; };
+      auto fill = [&](int c0, int ce, long long (&off)[L::kPass],
+                      unsigned (&ok)[R]) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  __syncthreads();
-  const int p_end = s_end;
-
-  // ---- phase 1: the group's shared prompt slots, all beams per tile
-  for (int c0 = 0; c0 < p_end; c0 += kTC) {
-    for (int i = tid; i < kTC * D; i += kThreads) {
-      const int j = i / D, d = i % D, c = c0 + j;
-      float kk = 0.f, vv = 0.f;
-      if (c < p_end) {
-        const size_t o = p_base + (size_t)c * S + d;
-        kk = to_f32(kp[o]);
-        vv = to_f32(vp[o]);
-      }
-      s_k[j][d] = kk;
-      s_v[j][d] = vv;
-    }
-    __syncthreads();
-    for (int i = tid; i < R * kTC; i += kThreads) {
-      const int r = i / kTC, j = i % kTC, c = c0 + j;
-      float s = GWT_NEG;
-      if (c < p_end && c < s_lo[r]) {
-        float dot = 0.f;
+        for (int r = 0; r < R; ++r) ok[r] = 0u;
 #pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(s_q[r][d], s_k[j][d], dot);
-        s = dot * scale;
-      }
-      s_p[r][j] = s;
-    }
-    __syncthreads();
-    for (int r = warp; r < R; r += kThreads / 32)
-      online_update(s_p[r], &s_m[r], &s_l[r], &s_corr[r], lane);
-    __syncthreads();
+        for (int p = 0; p < L::kPass; ++p) {
+          const int c = c0 + warp * (kChunk / dsplit::kWarps)
+                        + p * L::kSpp + lane / L::kLpr;
+          bool any = false;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < R * D) {
-        const int r = idx / D, d = idx % D;
-        float a = acc[i] * s_corr[r];
-#pragma unroll 16
-        for (int j = 0; j < kTC; ++j) a = fmaf(s_p[r][j], s_v[j][d], a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- phase 2: each beam's live slots, gathered through the row map
-  for (int r = 0; r < R; ++r) {
-    const int b = g * R + r;
-    const int* rm = rowmap + (size_t)b * NL;
-    for (int t0 = 0; t0 < hi_live; t0 += kTC) {
-      if (tid < kTC)
-        s_row[tid] = t0 + tid < hi_live ? g * R + rm[t0 + tid] : 0;
-      __syncthreads();
-      for (int i = tid; i < kTC * D; i += kThreads) {
-        const int j = i / D, d = i % D, t = t0 + j;
-        float kk = 0.f, vv = 0.f;
-        if (t < hi_live) {
-          const size_t o =
-              (((size_t)layer * B + s_row[j]) * NL + t) * S + h * D + d;
-          kk = to_f32(kl[o]);
-          vv = to_f32(vl[o]);
+          for (int r = 0; r < R; ++r) {
+            const bool o = c < ce && c < lo_r[r];
+            ok[r] |= (unsigned)o << p;
+            any = any || o;
+          }
+          off[p] = any ? (long long)(base + (size_t)c * S) : -1;
         }
-        s_k[j][d] = kk;
-        s_v[j][d] = vv;
-      }
-      __syncthreads();
-      for (int j = tid; j < kTC; j += kThreads) {
-        float s = GWT_NEG;
-        if (t0 + j < hi_live) {
-          float dot = 0.f;
+      };
+      dsplit::run_slice<T, D, R>(a, b, chunk_live, fill, kp, vp, qv, scale,
+                                 st, sm);
+      dsplit::write_partial<T, D, R>(st, (pair0 + i) * R, ws_acc, ws_ml,
+                                     sm);
+    } else {
+      dsplit::write_empty<D>((pair0 + i) * R, R, ws_acc, ws_ml);
+    }
+  } else {
+    // ---- live slice j of beam r0: its rows gathered through the row map
+    const int j = i - n_p, r0 = j / n_l;
+    const int bq = g * R + r0;
+    const int a = (j % n_l) * slice, b = min(a + slice, NL);
+    const size_t row = (pair0 + i) * R + r0;
+    if (a < hi_live) {
+      float qv[1][L::kVec];
+      dsplit::load_q<T, D, 1>(q, bq, S, h * D + d0, qv);
+      dsplit::RowState<1, L::kVec> st;
+      st.init();
+      const int* rm = rowmap + (size_t)bq * NL;
+      auto chunk_live = [&](int t0, int) { return t0 < hi_live; };
+      auto fill = [&](int t0, int te, long long (&off)[L::kPass],
+                      unsigned (&ok)[1]) {
+        ok[0] = 0u;
 #pragma unroll
-          for (int d = 0; d < D; ++d) dot = fmaf(s_q[r][d], s_k[j][d], dot);
-          s = dot * scale;
+        for (int p = 0; p < L::kPass; ++p) {
+          const int t = t0 + warp * (kChunk / dsplit::kWarps)
+                        + p * L::kSpp + lane / L::kLpr;
+          const bool o = t < te && t < hi_live;
+          ok[0] |= (unsigned)o << p;
+          off[p] = o ? (long long)((((size_t)layer * B + g * R + rm[t]) * NL
+                                    + t) * S + h * D + d0)
+                     : -1;
         }
-        s_p[r][j] = s;
-      }
-      __syncthreads();
-      if (warp == 0) online_update(s_p[r], &s_m[r], &s_l[r], &s_corr[r], lane);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = tid + i * kThreads;
-        if (idx < R * D && idx / D == r) {
-          const int d = idx % D;
-          float a = acc[i] * s_corr[r];
-#pragma unroll 16
-          for (int j = 0; j < kTC; ++j) a = fmaf(s_p[r][j], s_v[j][d], a);
-          acc[i] = a;
-        }
-      }
-      __syncthreads();
+      };
+      dsplit::run_slice<T, D, 1>(a, b, chunk_live, fill, kl, vl, qv, scale,
+                                 st, sm);
+      dsplit::write_partial<T, D, 1>(st, row, ws_acc, ws_ml, sm);
+    } else {
+      dsplit::write_empty<D>(row, 1, ws_acc, ws_ml);
     }
   }
+  if (!dsplit::last_to_arrive(&tickets[g * H + h], n_split, sm)) return;
+  dsplit::merge<D, R>(ws_acc + pair0 * R * D, ws_ml + pair0 * R * 2,
+                      SplitRows{n_p, n_l}, out, (size_t)g * R * S, S, h * D,
+                      sm, &tickets[g * H + h]);
+}
 
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < R * D) {
-      const int r = idx / D, d = idx % D;
-      out[(size_t)(g * R + r) * S + h * D + d] =
-          acc[i] / fmaxf(s_l[r], 1e-30f);
-    }
-  }
+template <typename T, int D, int R>
+int launch(const void* q, const void* kp, const void* vp, const void* kl,
+           const void* vl, const void* lo, const void* rowmap, void* out,
+           void* ws, void* tickets, int layer, int G, int CP, int NL, int S,
+           int n_head, int hi_live, float scale, int slice, int n_p, int n_l,
+           cudaStream_t stream) {
+  const dim3 grid(G, n_head, n_p + R * n_l);
+  split_beam_kernel<T, D, R><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (const T*)kl, (const T*)vl,
+      (const int*)lo, (const int*)rowmap, (float*)out, (float*)ws,
+      (int*)tickets, layer, G, CP, NL, S, hi_live, scale, slice, n_p, n_l);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* kl,
-           const void* vl, const void* lo, const void* rowmap, void* out,
-           int layer, int G, int CP, int NL, int S, int n_head, int R,
-           int hi_live, float scale, cudaStream_t stream) {
-  const dim3 grid(G, n_head);
-  split_beam_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (const T*)kl, (const T*)vl,
-      (const int*)lo, (const int*)rowmap, (float*)out, layer, G, CP, NL, S, R,
-      hi_live, scale);
-  return (int)cudaGetLastError();
+int launch_rows(int R, const void* q, const void* kp, const void* vp,
+                const void* kl, const void* vl, const void* lo,
+                const void* rowmap, void* out, void* ws, void* tickets,
+                int layer, int G, int CP, int NL, int S, int n_head,
+                int hi_live, float scale, int slice, int n_p, int n_l,
+                cudaStream_t stream) {
+#define GWT_ROWS(N)                                                          \
+  case N:                                                                    \
+    return launch<T, D, N>(q, kp, vp, kl, vl, lo, rowmap, out, ws, tickets,  \
+                           layer, G, CP, NL, S, n_head, hi_live, scale,      \
+                           slice, n_p, n_l, stream)
+  switch (R) {
+    GWT_ROWS(1); GWT_ROWS(2); GWT_ROWS(3); GWT_ROWS(4);
+    GWT_ROWS(5); GWT_ROWS(6); GWT_ROWS(7); GWT_ROWS(8);
+  }
+#undef GWT_ROWS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32 or 64.  R (beams per
-// group) <= 8.  rowmap values must lie in [0, R).
+// group) <= 8.  rowmap values must lie in [0, R).  ws: (G * n_head *
+// (n_p + R * n_l) * R) * (head_dim + 2) floats; tickets: G * n_head ints,
+// 0 on entry and left at 0.  slice: a multiple of 64 with n_p * slice >= CP,
+// n_l * slice >= NL and n_p + R * n_l <= 128.
 extern "C" int gwt_split_beam_attn(const void* q, const void* kp,
                                    const void* vp, const void* kl,
                                    const void* vl, const void* lo,
-                                   const void* rowmap, void* out, int layer,
-                                   int G, int CP, int NL, int S, int n_head,
-                                   int R, int hi_live, float scale, int dtype,
+                                   const void* rowmap, void* out, void* ws,
+                                   void* tickets, int layer, int G, int CP,
+                                   int NL, int S, int n_head, int R,
+                                   int hi_live, float scale, int slice,
+                                   int n_p, int n_l, int dtype,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int hd = S / n_head;
-  if (R < 1 || R > kMaxGroup) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > dsplit::kMaxRows || slice % kChunk || n_p < 1 || n_l < 1
+      || n_p + R * n_l > dsplit::kMaxSplit || (long long)n_p * slice < CP
+      || (long long)n_l * slice < NL)
+    return (int)cudaErrorInvalidValue;
 #define GWT_SPLIT(T, D)                                                     \
-  return launch<T, D>(q, kp, vp, kl, vl, lo, rowmap, out, layer, G, CP, NL, \
-                      S, n_head, R, hi_live, scale, s)
+  return launch_rows<T, D>(R, q, kp, vp, kl, vl, lo, rowmap, out, ws,       \
+                           tickets, layer, G, CP, NL, S, n_head, hi_live,   \
+                           scale, slice, n_p, n_l, s)
   if (dtype == 0 && hd == 64) GWT_SPLIT(float, 64);
   if (dtype == 0 && hd == 32) GWT_SPLIT(float, 32);
   if (dtype == 1 && hd == 64) GWT_SPLIT(__nv_bfloat16, 64);

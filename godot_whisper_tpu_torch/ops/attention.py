@@ -3,22 +3,22 @@ and their plain versions.
 
 Counterpart of the JAX package's ``ops/attention.py`` entry
 ``flash_attention_bh``: head-major ``(BH, T, D)`` q/k/v, softmax(q k^T /
-sqrt(D)) v with key columns >= ``t_valid`` masked at -1e30.  The route is
-the JAX package's ``_flash_bthd`` choice: a T whose 512-padded length is at
-most 1536 (every registry model, n_audio_ctx 1500) takes K2, the
-single-pass ``_flash_sp_kernel``; a longer one (a checkpoint whose header
-says n_audio_ctx > 1536) takes K13, the blockwise ``_flash_kernel``, whose
-512-key blocks are rounding points of its function.
+sqrt(D)) v with key columns >= ``t_valid`` masked at -1e30.  On the card
+the route is the JAX package's ``_flash_bthd`` choice: a T whose 512-padded
+length is at most 1536 (every registry model, n_audio_ctx 1500) takes K2,
+the single-pass ``_flash_sp_kernel``; a longer one (a checkpoint whose
+header says n_audio_ctx > 1536) takes K13, the blockwise ``_flash_kernel``,
+whose 512-key blocks are rounding points of its function.
 
 The three functions differ only where bf16 rounds: ``attention_bh_plain``
 (the JAX package's ``_einsum_attention``), ``attention_bh_sp_plain`` (K2's
 function) and ``attention_bh_blocked_plain`` (K13's).  On the CPU,
-``flash_attention_bh`` takes the einsum for a short T, as the JAX package
-does off the TPU (its einsum off the TPU, ``_flash_sp`` on it); on the card
-K2 computes the single-pass function, and the card checks hold it to
-``attention_bh_sp_plain``.  bf16 inputs run both kernels on the tensor
-cores (``wgmma``, csrc/enc_attn_tc.cuh); f32 inputs run their CUDA-core
-FMA kernels in full f32.
+``flash_attention_bh`` takes the einsum at every T, as the JAX package does
+off the TPU; on the card K2 computes the single-pass function and K13 the
+blocked one, and the card checks hold each to its plain version.  bf16
+inputs run both kernels on the tensor cores (``wgmma``,
+csrc/enc_attn_tc.cuh); f32 inputs run their CUDA-core FMA kernels in full
+f32.
 """
 
 from __future__ import annotations
@@ -120,16 +120,16 @@ def _check(what: str, q, k, v, tv: int) -> None:
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        t_valid: Optional[int] = None) -> torch.Tensor:
     """Encoder attention: (BH, T, D) q/k/v (f32 or bf16, D 32 or 64) ->
-    (BH, T, D) in q's dtype.  A 512-padded T above 1536 goes to K13
-    (``flash_attention_long``); otherwise CUDA tensors launch K2
-    (csrc/enc_attn.cu: single-pass function, ``attention_bh_sp_plain``)
-    and CPU tensors take the einsum, ``attention_bh_plain``, as the JAX
-    package does off the TPU."""
+    (BH, T, D) in q's dtype.  CPU tensors take the einsum,
+    ``attention_bh_plain``, at every T, as the JAX package does off the
+    TPU.  On the card a 512-padded T above 1536 goes to K13
+    (``flash_attention_long``); a shorter one launches K2
+    (csrc/enc_attn.cu: single-pass function, ``attention_bh_sp_plain``)."""
     bh, t, d = q.shape
-    if -(-t // BLOCK_K) * BLOCK_K > SP_MAX_T:
-        return flash_attention_long(q, k, v, t_valid)
     if q.device.type == "cpu":
         return attention_bh_plain(q, k, v, t_valid)
+    if -(-t // BLOCK_K) * BLOCK_K > SP_MAX_T:
+        return flash_attention_long(q, k, v, t_valid)
     tv = t if t_valid is None else int(t_valid)
     _check("flash_attention_bh", q, k, v, tv)
     out = torch.empty_like(q)

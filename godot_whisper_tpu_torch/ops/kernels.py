@@ -145,3 +145,34 @@ def require_cuda(what: str, *tensors) -> None:
             raise ValueError(f"{what}: needs contiguous tensors")
     if dev.type != "cuda":
         raise ValueError(f"{what}: kernel needs CUDA tensors, got {dev}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+MAX_TICKETS = 1 << 16
+_TICKETS: Dict[int, object] = {}
+
+
+def tickets(device, n: int):
+    """The per-device int32 counters of the split-cache kernels (K3/K4,
+    K7): one per (group, head) pair, zeroed once here; every launch leaves
+    them at 0 again, so a captured CUDA graph can replay the kernels.
+    Kernels that share them must run in stream order (the port runs on one
+    stream)."""
+    import torch
+    if n > MAX_TICKETS:
+        raise ValueError(f"split-cache attention: {n} (group, head) pairs, "
+                         f"at most {MAX_TICKETS}")
+    t = _TICKETS.get(device.index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("split-cache attention: call it once on this "
+                               "device before capturing a CUDA graph")
+        t = _TICKETS[device.index] = torch.zeros(
+            MAX_TICKETS, dtype=torch.int32, device=device)
+    return t

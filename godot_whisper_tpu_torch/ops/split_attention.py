@@ -10,6 +10,12 @@ written at live slot i.  The beam merge moves no cache bytes: it permutes a
 ``group_base + rowmap[b, t]`` (the reference's kv_cache_seq_cp re-tag,
 whisper.cpp:5402-5418).  Prompt slot c of beam b is valid iff
 ``c < lo[b]``; live slot t iff ``t < hi_live``.
+
+The kernel splits both caches across CTAs (csrc/decode_split.cuh): prompt
+slices score all beams of a group, live slices one beam each, and the last
+CTA of a (group, head) pair merges each beam's partials in split order.
+``split_beam_attention_split_plain`` follows that slicing in torch for the
+CPU tests; the wrapper never calls it.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels as K
-from .decode_attention import decode_attention_plain
+from .decode_attention import (H100_SMS, decode_attention_plain,
+                               merge_partials, slice_partial, split_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_KV_GROUP = 8  # MAX_DECODERS
@@ -46,6 +53,57 @@ def split_beam_attention_plain(q, kp, vp, kl, vl, lo, hi_live: int, *,
                                   cp + int(hi_live), split=cp, n_head=n_head)
 
 
+def split_beam_attention_split_plain(q, kp, vp, kl, vl, lo, hi_live: int, *,
+                                     n_head: int, kv_group: int, layer: int,
+                                     rowmap, n_sms: int = H100_SMS):
+    """The kernel's slicing and ordered merge in torch: the same function as
+    ``split_beam_attention_plain`` with the f32 sums taken per slice of
+    ``split_plan``'s length (prompt slices over all beams of a group, then
+    each beam's live slices over its gathered rows) and merged in split
+    order; slices past max(lo) or hi_live are skipped, as the kernel never
+    loads them.  For the CPU tests only.  Returns (B, S) f32."""
+    b, s = q.shape
+    R = kv_group
+    g, cp = kp.shape[1], kp.shape[2]
+    nl = kl.shape[2]
+    d = s // n_head
+    sl, (n_p, n_l) = split_plan(((cp, 1), (nl, R)), g * n_head, n_sms)
+    kpl, vpl, kll, vll = (x[layer].float() for x in (kp, vp, kl, vl))
+    rm = rowmap.to(torch.int64)
+    slot = torch.arange(cp, device=q.device)
+    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    for gi in range(g):
+        rows = range(gi * R, (gi + 1) * R)
+        qh = q[gi * R:(gi + 1) * R].reshape(R, n_head, d).float()
+        lo_g = lo[gi * R:(gi + 1) * R].long()
+        lo_max = min(int(lo_g.max()), cp)
+        ok = slot[None] < lo_g[:, None]
+        kh = kpl[gi].reshape(cp, n_head, d)
+        vh = vpl[gi].reshape(cp, n_head, d)
+        prompt = [slice_partial(qh, kh[a:a + sl], vh[a:a + sl],
+                                ok[:, a:a + sl])
+                  for a in range(0, n_p * sl, sl) if a < lo_max]
+        for r, bq in enumerate(rows):
+            live = []
+            for a in range(0, n_l * sl, sl):
+                e = min(a + sl, nl, hi_live)
+                if a >= e:
+                    continue
+                t = torch.arange(a, e, device=q.device)
+                src = gi * R + rm[bq, a:e]
+                kt = kll[src, t].reshape(e - a, n_head, d)
+                vt = vll[src, t].reshape(e - a, n_head, d)
+                live.append(slice_partial(
+                    qh[r:r + 1], kt, vt,
+                    torch.ones((1, e - a), dtype=torch.bool,
+                               device=q.device)))
+            parts = [(m[r:r + 1], l[r:r + 1], acc[r:r + 1])
+                     for m, l, acc in prompt] + live
+            out[bq] = (merge_partials(parts).reshape(s) if parts
+                       else torch.zeros(s, device=q.device))
+    return out
+
+
 def split_beam_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          kl: torch.Tensor, vl: torch.Tensor, lo: torch.Tensor,
                          hi_live: int, *, n_head: int, kv_group: int,
@@ -72,19 +130,31 @@ def split_beam_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             or not 0 <= layer < n_layer or not 0 <= hi_live <= nl
             or lo.dtype != torch.int32 or tuple(lo.shape) != (b,)
             or rowmap.dtype != torch.int32
-            or tuple(rowmap.shape) != (b, nl)):
+            or tuple(rowmap.shape) != (b, nl)
+            or (s * kp.element_size()) % 16
+            or any(t.data_ptr() % 16 for t in (kp, vp, kl, vl))):
         raise ValueError("split_beam_attention: q (B, S), kp/vp (L, B/kv_group"
                          ", CP, S), kl/vl (L, B, NL, S) of q's dtype (f32/bf16"
-                         "), head dim 32|64, kv_group <= 8, lo (B,) int32, "
-                         "rowmap (B, NL) int32, 0 <= hi_live <= NL")
-    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+                         ") on 16-byte boundaries with 16-byte rows, head dim "
+                         "32|64, kv_group <= 8, lo (B,) int32, rowmap (B, NL) "
+                         "int32, 0 <= hi_live <= NL")
+    d = s // n_head
+    sl, (n_p, n_l) = split_plan(((cp, 1), (nl, kv_group)), g * n_head,
+                                K.sm_count(q.device.index))
+    n_split = n_p + kv_group * n_l
+    # one allocation: the output, then the partials (m, l, acc[D]) of every
+    # (group, head, split, beam)
+    buf = torch.empty(b * s + g * n_head * n_split * kv_group * (d + 2),
+                      dtype=torch.float32, device=q.device)
+    out = buf[:b * s].view(b, s)
     fn = K.entry("split_attn", "gwt_split_beam_attn",
-                 (K.P,) * 8 + (K.I,) * 8 + (K.F, K.I, K.P))
+                 (K.P,) * 10 + (K.I,) * 8 + (K.F, K.I, K.I, K.I, K.I, K.P))
     K.launch(fn, "gwt_split_beam_attn", q.data_ptr(), kp.data_ptr(),
              vp.data_ptr(), kl.data_ptr(), vl.data_ptr(), lo.data_ptr(),
-             rowmap.data_ptr(), out.data_ptr(), int(layer), g, cp, nl, s,
-             n_head, kv_group, int(hi_live), float((s // n_head) ** -0.5),
-             _DTYPES[q.dtype], K.stream_ptr(q.device))
+             rowmap.data_ptr(), out.data_ptr(), buf[b * s:].data_ptr(),
+             K.tickets(q.device, g * n_head).data_ptr(), int(layer), g, cp,
+             nl, s, n_head, kv_group, int(hi_live), float(d ** -0.5), sl, n_p,
+             n_l, _DTYPES[q.dtype], K.stream_ptr(q.device))
     split_beam_attention.launches += 1
     return out
 

@@ -204,6 +204,81 @@ def test_split_attention_plain_matches_tpu_kernel(monkeypatch, hi_live):
     assert (err <= tol).all(), float((err / tol).max())
 
 
+# K7's split-cache algebra (csrc/decode_split.cuh):
+# ``split_beam_attention_split_plain`` takes the card kernel's slices
+# (prompt slices over a group's beams, live slices per beam), skips the
+# slices it never loads and merges each beam's partials in split order.
+# id: (G, kv_group, CP, NL, hi_live, lo per group, n_sms)
+SPLIT_BEAM_CASES = {
+    # only the current token is live (hi_live 1)
+    "live step 0": (1, 5, 256, 256, 1, [120], 132),
+    # prompt slices past lo 30 and live slices past 70 hold no valid slot
+    "wholly masked slices": (2, 5, 256, 512, 70, [10, 30], 132),
+    # one prompt slice of 512 over 256 slots, two live over 768 (f32:
+    # 4 of 64 over 200 prompt slots, 6 over 330 live)
+    "n_split not dividing the caches": (1, 5, 256, 768, 600, [200], 48),
+    "kv_group 8": (1, 8, 256, 256, 130, [100], 132),
+}
+
+
+def _split_beam_case(rng, case, odd=False):
+    g, kgrp, cp, nl, hi_live, lo_g, n_sms = SPLIT_BEAM_CASES[case]
+    if odd:
+        cp, nl, n_sms = 200, 330, 132
+    q, kp, vp, kl, vl, _, rowmap = _split_inputs(rng, l=2, g=g, kgrp=kgrp,
+                                                 cp=cp, nl=nl)
+    lo = np.repeat(np.asarray(lo_g, np.int32), kgrp)
+    sl, (n_p, n_l) = SA.split_plan(((cp, 1), (nl, kgrp)), g * 6, n_sms)
+    if case.startswith("n_split"):
+        assert n_p * sl != cp and n_l * sl != nl
+    return (q, kp, vp, kl, vl, lo, rowmap), hi_live, kgrp, n_sms
+
+
+@pytest.mark.parametrize("case", list(SPLIT_BEAM_CASES))
+def test_split_attention_split_plain_matches_jax(case):
+    """The split algebra against the JAX entry's CPU branch (f32), a
+    permuted row map, both layers: atol 1e-5."""
+    rng = np.random.default_rng(21)
+    x, hi_live, kgrp, n_sms = _split_beam_case(
+        rng, case, odd=case.startswith("n_split"))
+    q, kp, vp, kl, vl, lo, rowmap = x
+    for li in range(2):
+        got = SA.split_beam_attention_split_plain(
+            *(torch.from_numpy(a) for a in (q, kp, vp, kl, vl, lo)),
+            hi_live, n_head=6, kv_group=kgrp, layer=li,
+            rowmap=torch.from_numpy(rowmap), n_sms=n_sms)
+        want = jax_split(*(jnp.asarray(a) for a in x[:6]), jnp.int32(hi_live),
+                         n_head=6, kv_group=kgrp, layer=jnp.int32(li),
+                         rowmap=jnp.asarray(rowmap))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_BEAM_CASES))
+def test_split_attention_split_plain_matches_tpu_kernel(monkeypatch, case):
+    """The split algebra against ``_split_beam_kernel`` (interpret mode) on
+    bf16-valued inputs, under the budget of
+    ``test_split_attention_plain_matches_tpu_kernel``: 2^-8 sum_c p_c |v_c|
+    + 1e-5 per element (one bf16 rounding of every p)."""
+    monkeypatch.setenv("GWT_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(22)
+    x, hi_live, kgrp, n_sms = _split_beam_case(rng, case)
+    q, kp, vp, kl, vl = (_bf16(a) for a in x[:5])
+    lo, rowmap = x[5], x[6]
+    got = SA.split_beam_attention_split_plain(
+        *(torch.from_numpy(a) for a in (q, kp, vp, kl, vl, lo)), hi_live,
+        n_head=6, kv_group=kgrp, layer=1, rowmap=torch.from_numpy(rowmap),
+        n_sms=n_sms)
+    want = jax_split(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, kp, vp, kl, vl)),
+        jnp.asarray(lo), jnp.int32(hi_live), n_head=6, kv_group=kgrp,
+        layer=jnp.int32(1), rowmap=jnp.asarray(rowmap), interpret=True)
+    tol = 2.0 ** -8 * _p_abs_v(q, kp, vp, kl, vl, lo, rowmap, hi_live, 1, 6,
+                               kgrp) + 1e-5
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert (err <= tol).all(), float((err / tol).max())
+
+
 # ------------------------------------------------------------------ K8 ----
 @pytest.mark.parametrize("src,hi", [
     ([3, 3, 0, 5, 5, 5], 80),       # duplicated sources

@@ -488,3 +488,102 @@ def test_from_file_on_the_card(cuda, tmp_path):
     buf = gt.WhisperContext.from_buffer(open(path, "rb").read(),
                                         compute_dtype=torch.float32)
     assert view(buf) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (S, heads, B, kv_group, C, lo, split, hi)
+    (384, 6, 5, 1, 512, [1] * 5, 232, 233),            # step 0
+    (384, 6, 5, 1, 512, [0, 0, 1, 4, 9], 232, 233),    # lo 0: current token
+    (384, 6, 3, 1, 512, [1, 4, 9], 232, 333),          # the dead gap
+    (1280, 20, 8, 8, 1536, [1500] * 8, 1536, 0),       # kv_group 8, 160 lanes
+    (384, 6, 5, 5, 1000, [990] * 5, 1000, 0),          # slices do not divide C
+], ids=["step0", "current-token-only", "dead-gap", "kv_group8",
+        "C1000"])
+def test_decode_attention_split_edges(cuda, case):
+    """The split-cache K3/K4 at its edge cases against its plain version
+    (bf16 inputs, within 1e-4), bitwise equal from call to call (the merge
+    runs in split order)."""
+    s, h, b, kv_group, c, lo, split, hi = case
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(b, s, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(2, b // kv_group, c, s, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    lo_t = torch.tensor(lo, dtype=torch.int32, device=cuda)
+    kw = dict(split=split, n_head=h, kv_group=kv_group, layer=1)
+    got = D.decode_attention(q, k, v, lo_t, hi, **kw)
+    again = D.decode_attention(q, k, v, lo_t, hi, **kw)
+    torch.cuda.synchronize()
+    want = D.decode_attention_plain(q, k, v, lo_t, hi, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", [
+    # (S, heads, G, beams, CP, NL, lo per group, hi_live)
+    (384, 6, 1, 5, 256, 256, [0], 1),          # live step 0, empty prompt
+    (1280, 20, 1, 8, 256, 256, [120], 100),    # 8 beams, 160 lanes
+    (384, 6, 2, 5, 232, 200, [100, 37], 150),  # slices do not divide
+], ids=["step0-empty-prompt", "beam8", "CP232-NL200"])
+def test_split_attention_split_edges(cuda, case):
+    """The split-cache K7 at its edge cases against its plain version in
+    f32 on the same bf16 inputs (within 1e-4), bitwise equal from call to
+    call."""
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+    s, h, g, kgrp, cp, nl, lo_g, hi_live = case
+    gen = torch.Generator().manual_seed(7)
+    b = g * kgrp
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(cuda, torch.bfloat16)
+    q, kp, vp = rnd(b, s), rnd(2, g, cp, s), rnd(2, g, cp, s)
+    kl, vl = rnd(2, b, nl, s), rnd(2, b, nl, s)
+    lo = torch.tensor(lo_g).repeat_interleave(kgrp).to(cuda, torch.int32)
+    rowmap = torch.randint(0, kgrp, (b, nl), generator=gen).to(
+        cuda, torch.int32)
+    kw = dict(n_head=h, kv_group=kgrp, layer=1, rowmap=rowmap)
+    got = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+    again = SA.split_beam_attention(q, kp, vp, kl, vl, lo, hi_live, **kw)
+    torch.cuda.synchronize()
+    want = SA.split_beam_attention_plain(
+        q.float(), kp.float(), vp.float(), kl.float(), vl.float(), lo,
+        hi_live, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+    assert torch.equal(got, again)
+
+
+def test_split_cache_kernels_replay_in_a_cuda_graph(cuda):
+    """K3/K4 and K7 captured in one CUDA graph and replayed: every replay
+    gives the eager result bit for bit (the last CTA of each (group, head)
+    leaves its ticket at 0 for the next launch)."""
+    from godot_whisper_tpu_torch.ops import split_attention as SA
+    gen = torch.Generator().manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = rnd(5, 384), rnd(2, 1, 1536, 384), rnd(2, 1, 1536, 384)
+    lo = torch.full((5,), 1500, dtype=torch.int32, device=cuda)
+    kp, vp, kl, vl = (rnd(2, 1, 256, 384), rnd(2, 1, 256, 384),
+                      rnd(2, 5, 256, 384), rnd(2, 5, 256, 384))
+    lo_p = torch.full((5,), 120, dtype=torch.int32, device=cuda)
+    rowmap = torch.randint(0, 5, (5, 256), generator=gen).to(cuda,
+                                                             torch.int32)
+
+    def step():
+        return (D.decode_attention(q, k, v, lo, 0, split=1536, n_head=6,
+                                   kv_group=5, layer=1),
+                SA.split_beam_attention(q, kp, vp, kl, vl, lo_p, 100,
+                                        n_head=6, kv_group=5, layer=1,
+                                        rowmap=rowmap))
+    want = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))

@@ -13,7 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "godot_whisper_tpu_torch"
 MODULES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "profile_torch_main_path.py"]
+                                        ROOT / "profile_torch_main_path.py",
+                                        ROOT / "kernel_device_times.py"]
 
 
 def _forbidden(name: str) -> bool:

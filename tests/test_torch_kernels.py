@@ -154,6 +154,90 @@ def test_decode_attention_plain_matches_tpu_kernels(kv_group):
                                rtol=2e-2)
 
 
+# The split-cache algebra of the K3/K4 card kernel (csrc/decode_split.cuh):
+# ``decode_attention_split_plain`` takes its slices (``split_plan``), skips
+# the slices it never loads and merges the partials in split order.
+# id: (B, kv_group, C, lo, split, hi, n_sms)
+SPLIT_CASES = {
+    # cross-attention with short prompts: slices [64, 512) hold no valid slot
+    "wholly masked slices": (2, 2, 512, [40, 60], 512, 0, 132),
+    # row 0's only valid slot is the current token (lo 0, hi = split + 1)
+    "only the current token": (3, 1, 512, [0, 2, 7], 232, 233, 132),
+    "step 0": (3, 1, 512, [5, 5, 5], 232, 233, 132),
+    # 2 slices of 512 over 768 slots (over 1000 in the f32 case)
+    "n_split not dividing C": (5, 5, 768, [700] * 5, 768, 0, 8),
+    # the gap [9, 232) between the prompts and the prompt capacity
+    "dead gap lo 1/4/9": (3, 1, 512, [1, 4, 9], 232, 333, 132),
+    "kv_group 8": (8, 8, 1536, [1500] * 8, 1536, 0, 132),
+}
+
+
+def _split_case(rng, case, c=None):
+    b, kv_group, c0, lo, split, hi, n_sms = SPLIT_CASES[case]
+    c = c0 if c is None else c
+    q, k, v = _dec_inputs(rng, 2, b, kv_group, c, 384)
+    kw = dict(split=min(split, c), n_head=6, kv_group=kv_group, layer=1)
+    return q, k, v, lo, hi, kw, n_sms
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_attention_split_plain_matches_jax(case):
+    """The split algebra against the JAX entry's ``_fallback`` on the CPU,
+    f32 to 1e-5: every case of the card kernel's slicing and merge."""
+    rng = np.random.default_rng(4)
+    c = 1000 if case == "n_split not dividing C" else None
+    q, k, v, lo, hi, kw, n_sms = _split_case(rng, case, c)
+    g, c = k.shape[1], k.shape[2]
+    sl, (n_split,) = D.split_plan(((c, 1),), g * 6, n_sms)
+    if case == "n_split not dividing C":
+        assert n_split * sl != c
+    got = D.decode_attention_split_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.tensor(lo, dtype=torch.int32), hi, n_sms=n_sms, **kw)
+    want = jax_decode.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lo, jnp.int32), jnp.int32(hi), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_attention_split_plain_matches_tpu_kernels(case):
+    """The split algebra against the TPU kernels in interpret mode, on
+    bf16-valued inputs: they contract in bf16 and round p to bf16 before
+    p . V, so the tolerance is the bf16-level 2e-2 of
+    ``test_decode_attention_plain_matches_tpu_kernels``."""
+    rng = np.random.default_rng(5)
+    q, k, v, lo, hi, kw, n_sms = _split_case(rng, case)
+    bf = [np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+          for x in (q, k, v)]
+    got = D.decode_attention_split_plain(
+        *(torch.from_numpy(x) for x in bf),
+        torch.tensor(lo, dtype=torch.int32), hi, n_sms=n_sms, **kw)
+    want = jax_decode.decode_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in bf),
+        jnp.asarray(lo, jnp.int32), jnp.int32(hi), interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_split_plan_and_dead_slices():
+    """The slices the card kernels run: their length comes from the cache
+    capacity and the SM count (never from the step), and a slice that holds
+    no slot any row may attend is skipped: at split 232 with prompts of
+    1, 4 and 9 slots and hi 333, the gap [9, 232) and the slots past hi."""
+    assert D.split_plan(((1536, 1),), 6) == (64, (24,))      # tiny.en cross
+    assert D.split_plan(((1536, 1),), 20) == (128, (12,))    # large-v3
+    assert D.split_plan(((512, 1),), 30) == (64, (8,))       # tiny.en self
+    assert D.split_plan(((256, 1), (256, 5)), 6) == (64, (4, 4))  # K7
+    sl, (n,) = D.split_plan(((512, 1),), 3 * 6)
+    live = [i for i in range(n)
+            if D.slice_live(i * sl, (i + 1) * sl, 9, 232, 333)]
+    assert (sl, live) == (64, [0, 3, 4, 5])
+    assert D.slice_live(0, 64, 0, 232, 233) is False
+    assert D.slice_live(192, 256, 0, 232, 233) is True
+
+
 # ------------------------------------------------------------------ K5 ----
 def _filter_case(seed):
     cfg = jax_get_config("tiny.en")
