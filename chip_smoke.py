@@ -22,10 +22,14 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    Beam search's kernels too: K6 filter + top-K, K7 split prompt / live
    attention (with a permuted row map) and K8 the bounded cache reorder
    (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
-   K9 int8 matmul (io and oi, decode rows and the 1500-row cross-K/V
-   projection), K10 int4 matmul, K11 / K12 int8 cross-attention (exact
-   and W8A8).  And the long-context encoder attention K13 at phase 10's
-   shape and at large-v3 widths, f32 and bf16.  The bf16 encoder
+   K9 int8 matmul in its three routes (io decode rows, oi logits rows
+   on the tensor cores, the 1500-row io cross-K/V projection through
+   the pipelined tensor-core tile), each timed, K10 int4 matmul, K11 /
+   K12 int8 cross-attention (exact and W8A8; K12's cluster kernel also
+   where a CTA's slice holds no valid slot and at 256-slot blocks, and
+   bitwise equal from call to call).  And the long-context encoder
+   attention K13 at phase 10's shape and at large-v3 widths, f32 and
+   bf16.  The bf16 encoder
    attentions (K2, K13) run on the tensor cores; each is held to its own
    function's plain version within a limit that the other function breaks
    (a control), and the registers, spills and shared memory of their
@@ -45,8 +49,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    cache), 10 s of audio, counters zeroed just before; K8 must have
    launched and K7 not.
 7. quantized paths -- (1) synthetic("tiny.en", seed=0, quantize="int8")
-   .full(TranscribeParams(cross_kv_int8=True), 34 s): K9 (io and oi) and
-   K12 must launch, and no cross-attention through K4 (kv_group 5);
+   .full(TranscribeParams(cross_kv_int8=True), 34 s): K9 (io decode
+   rows, oi logits rows and the io tensor-core route) and K12 must
+   launch, and no cross-attention through K4 (kv_group 5);
    (2) quantize="int4" with TranscribeParams(strategy=BEAM_SEARCH,
    cross_kv_int8=True): K10, K9 (oi), K12, K6 and K7 must launch.
    Counters zeroed just before each.
@@ -91,6 +96,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_BF16 = 989e12            # dense tensor-core bf16
 PEAK_F32 = 67e12              # f32 outside the tensor cores
 TPU_OPS = "godot_whisper_tpu/ops/"
+GRAPH_CALLS = 10              # calls of a kernel per timed CUDA graph
 
 
 def log(*a):
@@ -125,10 +131,13 @@ def time_ms(torch, fn, reps: int = 30) -> float:
 
 
 def graph_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one call: ``fn`` captured once in a CUDA graph,
-    replayed ``reps`` times between two events.  Unlike ``time_ms`` it
-    leaves out the host's time to enqueue the call (a ctypes wrapper's
-    or PyTorch's dispatch), which a short kernel's event time includes."""
+    """Device time of one call: GRAPH_CALLS calls of ``fn`` captured back
+    to back in one CUDA graph, replayed ``reps`` times between two events,
+    divided by reps * GRAPH_CALLS.  Unlike ``time_ms`` it leaves out the
+    host's time to enqueue the call (a ctypes wrapper's or PyTorch's
+    dispatch), which a short kernel's event time includes; with several
+    calls per graph a kernel shorter than one graph launch on the host
+    (about 6 us) is not timed at the host's launch rate."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -137,7 +146,8 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
+        for _ in range(GRAPH_CALLS):
+            fn()
     g.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -148,7 +158,7 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     b.record()
     b.synchronize()
     del g
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / (reps * GRAPH_CALLS)
 
 
 def timed(torch, fn, lib=None, reps: int = 30) -> dict:
@@ -823,7 +833,8 @@ def check_quant_kernels(torch, rng):
                 f"{r['library_device_ms'] * 1e3:.2f} us)")
 
     qmm_case("int8", "oi", 5, 384, 51864, "tiny.en logits", "qmatmul")
-    qmm_case("int8", "io", 5, 384, 1152, "tiny.en wqkv")
+    qmm_case("int8", "io", 5, 384, 1152, "tiny.en wqkv", "qmatmul_io")
+    qmm_case("int8", "io", 5, 1536, 384, "tiny.en mlp.w1")
     qmm_case("int8", "io", 1500, 384, 384, "tiny.en cross-K", "qmatmul_xk")
     qmm_case("int8", "oi", 8, 1280, 51866, "large-v3 logits")
     qmm_case("int8", "io", 1500, 1280, 1280, "large-v3 cross-K")
@@ -834,12 +845,13 @@ def check_quant_kernels(torch, rng):
     qmm_case("int4", "io", 1500, 1280, 1280, "large-v3 cross-K")
 
     # ---- K11 / K12 over a quantized cross-KV (T 1536, 1500 valid)
-    def xattn_case(s, h, kg, n_layer, w8a8, tag, key=None):
-        k = tens(n_layer, 1, 1536, s, dtype=torch.bfloat16)
-        v = tens(n_layer, 1, 1536, s, dtype=torch.bfloat16)
-        x = quantize_cross_kv(CrossKV(k, v, 1500), h)
+    def xattn_case(s, h, kg, n_layer, w8a8, tag, key=None, t=1536,
+                   t_valid=1500):
+        k = tens(n_layer, 1, t, s, dtype=torch.bfloat16)
+        v = tens(n_layer, 1, t, s, dtype=torch.bfloat16)
+        x = quantize_cross_kv(CrossKV(k, v, t_valid), h)
         q = tens(kg, s, dtype=torch.bfloat16)
-        lo = torch.full((kg,), 1500, dtype=torch.int32, device=dev)
+        lo = torch.full((kg,), t_valid, dtype=torch.int32, device=dev)
         kw = dict(n_head=h, kv_group=kg, layer=n_layer - 1)
         packed = CA.is_packed(h, kg)
         kname = "K12" if packed else "K11"
@@ -853,7 +865,10 @@ def check_quant_kernels(torch, rng):
             return CA.cross_attention_quant_plain(q, x.k_q, x.k_s, x.v_q,
                                                   x.v_s, lo, w8a8=w8a8, **kw)
         got = run()
+        again = run()
         sync()
+        if not torch.equal(got, again):
+            fail(f"{kname} [{tag}] differs from call to call")
         want = plain()
         err = (got - want).abs()
         e_max = float(err.max())
@@ -903,6 +918,10 @@ def check_quant_kernels(torch, rng):
     xattn_case(384, 6, 1, 4, True, "tiny.en kv_group 1")
     xattn_case(1280, 20, 5, 3, True, "large-v3 kv_group 5")
     xattn_case(1280, 20, 5, 3, False, "large-v3 kv_group 5")
+    xattn_case(384, 6, 5, 4, True, "tiny.en lo 1100: CTAs with no valid "
+               "slot", t_valid=1100)
+    xattn_case(384, 6, 5, 4, False, "tiny.en T 768: 256-slot blocks", t=768,
+               t_valid=700)
     xattn_case(1280, 20, 8, 3, False, "large-v3 beam 8", "xattn_wide")
     return recs
 
@@ -1275,6 +1294,7 @@ def main() -> int:
             fn.launches = 0
         decode_attention.group_launches.clear()
         quant_matmul.layout_launches.clear()
+        quant_matmul.route_launches.clear()
         xattn_q_packed.mode_launches.clear()
         c.timings.reset()
         torch.cuda.synchronize()
@@ -1284,6 +1304,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
         n = {fn.__name__: fn.launches for fn in counters}
         n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
+        for route in ("io_rows", "oi_rows", "tc"):
+            n[f"quant_matmul_{route}"] = quant_matmul.route_launches[route]
         n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
         grp = dict(decode_attention.group_launches)
         tm = c.timings
@@ -1336,11 +1358,14 @@ def main() -> int:
                         "cross-KV (W8A8), default ladder, 34.0 s audio", ctx8,
                         gt.TranscribeParams(cross_kv_int8=True), 34.0)
     if not (n7["quant_matmul"] > n7["quant_matmul_oi"] > 0
+            and n7["quant_matmul_io_rows"] and n7["quant_matmul_oi_rows"]
+            and n7["quant_matmul_tc"]
             and n7["xattn_q_packed_w8a8"] and n7["log_mel_raw"]
             and n7["flash_attention_bh"] and n7["fused_filter_sample"]
             and grp7.get(1)) or grp7.get(5) or n7["quant_matmul4"]:
-        fail("quantized path 1 did not go through K9 (io and oi) and K12, "
-             "or sent cross-attention through K4")
+        fail("quantized path 1 did not go through K9 (io rows, oi rows and "
+             "the tensor-core route) and K12, or sent cross-attention "
+             "through K4")
     del ctx8
     ctx4 = gt.WhisperContext.synthetic("tiny.en", seed=0, quantize="int4")
     n7b, grp7b, _ = drive("quantized path 2: tiny.en int4 weights, int8 "
@@ -1385,7 +1410,8 @@ def main() -> int:
            "filter_topk": "filter_sample.py:178",
            "split_attn": "split_attention.py:59",
            "kv_reorder": "kv_reorder.py:68",
-           "qmatmul": "qmatmul.py:264", "qmatmul4": "qmatmul.py:151",
+           "qmatmul_io": "qmatmul.py:264", "qmatmul": "qmatmul.py:264",
+           "qmatmul_xk": "qmatmul.py:264", "qmatmul4": "qmatmul.py:151",
            "xattn_wide": "cross_attention.py:50",
            "xattn_packed": "cross_attention.py:128",
            "enc_attn_long": "attention.py:53"}
@@ -1399,16 +1425,18 @@ def main() -> int:
              "filter_topk": ("fused_filter_topk", "filter_sample.cu"),
              "split_attn": ("split_beam_attention", "split_attn.cu"),
              "kv_reorder": ("reorder_kv_live", "kv_reorder.cu"),
-             "qmatmul": ("quant_matmul", "qmatmul.cu"),
+             "qmatmul_io": ("quant_matmul[io rows]", "qmatmul.cu"),
+             "qmatmul": ("quant_matmul[oi rows]", "qmatmul.cu"),
+             "qmatmul_xk": ("quant_matmul[io tc]", "qmatmul.cu"),
              "qmatmul4": ("quant_matmul4", "qmatmul.cu"),
              "xattn_wide": ("xattn_q_wide", "cross_attn.cu"),
              "xattn_packed": ("xattn_q_packed", "cross_attn.cu"),
              "enc_attn_long": ("flash_attention_long", "enc_attn_long.cu")}
     # launches: K1-K5 from the greedy main path (phase 4), K6 and K7 from
     # the beam path (phase 5), K8 from the wide beam route (phase 6), K9
-    # and K12 from quantized path 1, K10 from path 2, K11 from the wide
-    # quantized route (phases 7-8), K13 from the long audio context
-    # (phase 10)
+    # (each route) and K12 from quantized path 1, K10 from path 2, K11 from
+    # the wide quantized route (phases 7-8), K13 from the long audio
+    # context (phase 10)
     n_launch = {"mel": launches["log_mel_raw"],
                 "enc_attn": launches["flash_attention_bh"],
                 "decode_attn_k3": groups.get(1, 0),
@@ -1417,18 +1445,13 @@ def main() -> int:
                 "filter_topk": n5["fused_filter_topk"],
                 "split_attn": n5["split_beam_attention"],
                 "kv_reorder": n6["reorder_kv_live"],
-                "qmatmul": n7["quant_matmul"],
+                "qmatmul_io": n7["quant_matmul_io_rows"],
+                "qmatmul": n7["quant_matmul_oi_rows"],
+                "qmatmul_xk": n7["quant_matmul_tc"],
                 "qmatmul4": n7b["quant_matmul4"],
                 "xattn_wide": n8["xattn_q_wide"],
                 "xattn_packed": n7["xattn_q_packed"],
                 "enc_attn_long": n10["flash_attention_long"]}
-    # K9's second main-path shape, the 1500-row cross-K/V projection: its
-    # numbers go to the log, the kernels line keeps one entry per kernel
-    xk = recs.pop("qmatmul_xk")
-    log(f"K9 io cross-K (1500, 384) x (384, 384): ms {xk['ms']}, device_ms "
-        f"{xk['device_ms']}, plain_ms {xk['plain_ms']}, bound_ms "
-        f"{xk['bound'][0]} ({xk['bound'][1]}), torch.mm bf16 ms "
-        f"{xk['library_ms']}, library_device_ms {xk['library_device_ms']}")
     out = []
     for key, r in recs.items():
         b_ms, b_by = r["bound"]

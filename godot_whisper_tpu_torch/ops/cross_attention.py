@@ -11,7 +11,9 @@ Dispatch follows the JAX package (``cross_attention.py:286-303``):
 
 - ``kv_group * n_head <= 128`` (kv_group 1 included): K12, the packed
   kernel, softmax blocks of 512 slots when T % 512 == 0 (else 256), in W8A8
-  mode by default or exact mode;
+  mode by default or exact mode; a thread-block cluster of CTAs per (group,
+  head), each taking 64 slots of every block (``cluster_plan``), which
+  share the block's running max and add their P.V partials in rank order;
 - otherwise K11, exact mode, softmax blocks of 256 slots.
 
 The plain version repeats the kernels' arithmetic block by block (the
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import collections
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,6 +51,23 @@ def is_packed(n_head: int, kv_group: int) -> bool:
 
 def softmax_block(t_pad: int, packed: bool) -> int:
     return 512 if packed and t_pad % 512 == 0 else 256
+
+
+CLUSTER_SLICE = 64  # slots of each softmax block one K12 CTA takes
+MAX_CLUSTER = 8     # CTAs of a portable thread-block cluster
+
+
+def cluster_plan(g: int, n_head: int, t_pad: int) -> Tuple[int, int]:
+    """K12's slice and cluster size: (64, blk / 64) for the softmax block
+    ``blk`` of ``t_pad`` slots, 8 CTAs per (group, head) for blocks of 512
+    and 4 for 256; grid (cluster, n_head, g).  CTA r of a cluster takes
+    slots [64 r, 64 r + 64) of every block.  Shapes decide, never the
+    valid lengths, so every call and graph replay has the same grid."""
+    blk = softmax_block(t_pad, True)
+    if g < 1 or n_head < 1 or t_pad % blk:
+        raise ValueError(f"cluster_plan: {g} groups, {n_head} heads, "
+                         f"{t_pad} slots")
+    return CLUSTER_SLICE, blk // CLUSTER_SLICE
 
 
 def cross_attention_quant_plain(q, k_q, k_s, v_q, v_s, t_valid, *,
@@ -128,8 +147,9 @@ def w8a8_flip_limit(q, k_q, k_s, v_s, t_valid, *, n_head: int,
     return lim.reshape(b, n_head, 1).expand(b, n_head, d).reshape(b, s)
 
 
-def _launch(fn_name: str, q, k_q, k_s, v_q, v_s, lo, *, n_head: int,
-            kv_group: int, layer: int, blk: int, w8a8: bool) -> torch.Tensor:
+def _check(fn_name: str, q, k_q, k_s, v_q, v_s, lo, *, n_head: int,
+           kv_group: int, layer: int, blk: int, align: int):
+    """Validate a K11 / K12 call; returns q as contiguous bf16."""
     qb = q.to(torch.bfloat16).contiguous()
     K.require_cuda(fn_name, qb, k_q, k_s, v_q, v_s, lo)
     b, s = qb.shape
@@ -144,26 +164,29 @@ def _launch(fn_name: str, q, k_q, k_s, v_q, v_s, lo, *, n_head: int,
             or not 1 <= kv_group <= MAX_KV_GROUP or g * kv_group != b
             or not 0 <= layer < n_layer or t_pad % blk
             or lo.dtype != torch.int32 or tuple(lo.shape) != (b,)
-            or k_q.data_ptr() % 4 or v_q.data_ptr() % 4):
+            or k_q.data_ptr() % align or v_q.data_ptr() % align
+            or k_s.data_ptr() % 4):
         raise ValueError(f"{fn_name}: q (B, S), k_q/v_q (L, B/kv_group, T, S) "
                          "int8, k_s (L, G, T, 128) bf16, v_s (L, G, 128) f32, "
                          "head dim 16|32|64, kv_group <= 8, T a multiple of "
                          "the softmax block, t_valid (B,) int32")
-    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
-    fn = K.entry("cross_attn", "gwt_xattn_q",
-                 (K.P,) * 7 + (K.I,) * 8 + (K.F, K.P))
-    K.launch(fn, fn_name, qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
-             v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(), out.data_ptr(),
-             int(layer), g, t_pad, s, n_head, kv_group, blk, int(w8a8),
-             float((s // n_head) ** -0.5), K.stream_ptr(q.device))
-    return out
+    return qb
 
 
 def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
                  layer: int) -> torch.Tensor:
     """K11 on the card: exact mode, softmax blocks of 256 slots."""
-    out = _launch("xattn_q_wide", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
-                  kv_group=kv_group, layer=layer, blk=256, w8a8=False)
+    qb = _check("xattn_q_wide", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
+                kv_group=kv_group, layer=layer, blk=256, align=4)
+    b, s = qb.shape
+    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    fn = K.entry("cross_attn", "gwt_xattn_q", (K.P,) * 7 + (K.I,) * 7
+                 + (K.F, K.P))
+    K.launch(fn, "xattn_q_wide", qb.data_ptr(), k_q.data_ptr(),
+             k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
+             out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
+             n_head, kv_group, 256, float((s // n_head) ** -0.5),
+             K.stream_ptr(q.device))
     xattn_q_wide.launches += 1
     return out
 
@@ -171,10 +194,20 @@ def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
 def xattn_q_packed(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
                    layer: int, w8a8: bool) -> torch.Tensor:
     """K12 on the card: W8A8 or exact mode, softmax blocks of 512 slots
-    when T % 512 == 0."""
-    out = _launch("xattn_q_packed", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
-                  kv_group=kv_group, layer=layer,
-                  blk=softmax_block(k_q.shape[2], True), w8a8=w8a8)
+    when T % 512 == 0, a cluster of CTAs per (group, head)
+    (``cluster_plan``)."""
+    sl, nc = cluster_plan(k_q.shape[1], n_head, k_q.shape[2])
+    qb = _check("xattn_q_packed", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
+                kv_group=kv_group, layer=layer, blk=sl * nc, align=16)
+    b, s = qb.shape
+    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    fn = K.entry("cross_attn", "gwt_xattn_packed", (K.P,) * 7 + (K.I,) * 8
+                 + (K.F, K.P))
+    K.launch(fn, "xattn_q_packed", qb.data_ptr(), k_q.data_ptr(),
+             k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
+             out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
+             n_head, kv_group, sl * nc, int(w8a8),
+             float((s // n_head) ** -0.5), K.stream_ptr(q.device))
     xattn_q_packed.launches += 1
     xattn_q_packed.mode_launches["w8a8" if w8a8 else "exact"] += 1
     return out

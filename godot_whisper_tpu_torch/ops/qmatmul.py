@@ -21,12 +21,19 @@ Layouts (the JAX package's):
 Both containers are NamedTuples whose ``[i]`` is tuple indexing, so code
 that slices per-layer leaves must call ``.layer(li)`` (``qlayer``), never
 ``[li]``.
+
+K9 takes one of three routes on the card (``quant_matmul.route_launches``):
+``io_rows`` (``io``, at most 16 rows: the contraction axis split across
+a cluster of CTAs by ``io_rows_plan``, the slices' sums added in order
+inside the launch),
+``oi_rows`` (``oi``, at most 16 rows: the logits on the tensor cores) and
+``tc`` (more than 16 rows: pipelined tensor-core tiles).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -167,14 +174,53 @@ def quant_matmul4_plain(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ wrappers
+ROWS_MAX = 16         # x rows the decode-row kernels take
+ROW_TILE = 16         # output columns per CTA of the io decode-row kernel
+ROWS_PER_PASS = 256   # weight rows a pass covers (256 threads; 512 to 5 rows)
+MAX_WHOLE = 512       # contraction length a CTA takes without a split
+MAX_SPLIT = 8         # slices of the contraction axis: a portable cluster
+H100_SMS = 132
+
+
+def io_rows_plan(m: int, s: int, o: int,
+                 n_sms: int = H100_SMS) -> Tuple[int, int]:
+    """Slice length (weight rows) and slice count of K9's ``io`` decode-row
+    kernel for x (m, s) @ W (s, o), m <= 16.
+
+    The kernel's grid is (ceil(o / 16), n_split) in clusters of (1,
+    n_split): a CTA owns 16 columns (one 16-byte vector of each weight row)
+    and one slice [i * slice, min((i + 1) * slice, s)) of the contraction
+    axis, and the cluster adds its slices' sums in order.  Up to MAX_WHOLE
+    rows a CTA takes the whole axis (two passes; a split's cluster barrier
+    would cost more than it saves); beyond, the axis is cut into slices of
+    at least one pass (a multiple of 8 rows), a power of two (clusters of
+    2, 4 or 8 pack the card's SM groups), as many as one wave of CTAs holds
+    (a CTA fills an SM's registers), at most MAX_SPLIT.  Shapes
+    and the SM count decide, never data, so the grid is the same at every
+    step."""
+    if not 1 <= m <= ROWS_MAX:
+        raise ValueError(f"io_rows_plan: {m} rows, the kernel takes 1..16")
+    n_tiles = -(-o // ROW_TILE)
+    n = 1
+    if s > MAX_WHOLE:
+        cap = min(MAX_SPLIT, -(-s // ROWS_PER_PASS), n_sms // n_tiles)
+        while 2 * n <= cap:  # clusters of 2, 4 or 8 pack an SM group
+            n *= 2
+    sl = -(-(-(-s // n)) // 8) * 8
+    return sl, -(-s // sl)
+
+
 def _launch(name: str, layout: int, x2: torch.Tensor, qt, out: torch.Tensor,
-            group: int) -> None:
+            group: int, slice_rows: int = 0, n_split: int = 0) -> None:
+    """One call of csrc/qmatmul.cu's entry; slice_rows and n_split are the
+    io decode-row kernel's (``io_rows_plan``), 0 elsewhere."""
     M, S = x2.shape
     O = out.shape[1]
     fn = K.entry("qmatmul", "gwt_qmatmul",
-                 (K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.I, K.P))
+                 (K.P,) * 4 + (K.I,) * 7 + (K.P,))
     K.launch(fn, name, x2.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(),
-             out.data_ptr(), M, S, O, layout, group, K.stream_ptr(x2.device))
+             out.data_ptr(), M, S, O, layout, group, slice_rows, n_split,
+             K.stream_ptr(x2.device))
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor, *,
@@ -196,11 +242,17 @@ def quant_matmul(x: torch.Tensor, qt: QuantTensor, *,
             or tuple(qt.s.shape) != (O,)):
         raise ValueError("quant_matmul: q int8 (S, O) for 'io' or (O, S) for "
                          "'oi' with S = x.shape[-1], s float32 (O,)")
-    out = torch.empty((x2.shape[0], O), dtype=torch.float32, device=x.device)
-    if x2.shape[0]:
-        _launch("gwt_qmatmul[int8]", 1 if oi else 0, x2, qt, out, 0)
+    M = x2.shape[0]
+    route = "tc" if M > ROWS_MAX else "oi_rows" if oi else "io_rows"
+    out = torch.empty((M, O), dtype=torch.float32, device=x.device)
+    if M:
+        sl, n_split = (io_rows_plan(M, S, O, K.sm_count(x.device.index))
+                       if route == "io_rows" else (0, 0))
+        _launch(f"gwt_qmatmul[int8 {route}]", 1 if oi else 0, x2, qt, out,
+                0, sl, n_split)
         quant_matmul.launches += 1
         quant_matmul.layout_launches[layout] += 1
+        quant_matmul.route_launches[route] += 1
     return out.reshape(*x.shape[:-1], O)
 
 
@@ -228,4 +280,6 @@ def quant_matmul4(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
 
 quant_matmul.launches = 0
 quant_matmul.layout_launches = collections.Counter()  # "io" / "oi"
+# by route: "io_rows" (io, M <= 16), "oi_rows" (oi, M <= 16), "tc" (M > 16)
+quant_matmul.route_launches = collections.Counter()
 quant_matmul4.launches = 0

@@ -11,11 +11,15 @@ Times, at chip_smoke.py's shapes (bf16, random inputs from numpy seed 0):
   1536 slots, 1500 valid), large-v3 cross-attention (20 heads, S 1280);
 - K7 ``split_beam_attention``: one stream of 5 beams, prompt and live
   capacity 256, lo 120, hi_live 100, at tiny.en and large-v3 widths;
-- K9 ``quant_matmul``: the tiny.en logits (5, 384) x int8 (51864, 384)
-  ``oi`` and the cross-K projection (1500, 384) x (384, 384) ``io``;
+- K9 ``quant_matmul`` in its three routes: the tiny.en decode step's
+  ``io`` projections at 5 rows, (384, 384) wo, (384, 1152) wqkv, (384,
+  1536) mlp.w0 and (1536, 384) mlp.w1; the logits (5, 384) x int8 (51864,
+  384) ``oi``; the cross-K projection (1500, 384) x (384, 384) ``io``;
 - K10 ``quant_matmul4``: (5, 384) x int4 (384, 1536);
-- K11 / K12 ``cross_attention_quant``: large-v3 widths at beam 8 (exact)
-  and tiny.en kv_group 5 (W8A8).
+- K11 / K12 ``cross_attention_quant``: large-v3 widths at beam 8 (K11,
+  exact); K12 at tiny.en kv_group 5 (W8A8 and exact), tiny.en kv_group 1
+  (W8A8; 5 streams of one row) and large-v3 widths at kv_group 5 (W8A8
+  and exact).
 
 Each kernel wrapper is captured in a CUDA graph and replayed
 (``chip_smoke.graph_ms``: the device time without the host's time to
@@ -134,6 +138,10 @@ def main() -> int:
 
     # K9 / K10
     for name, kind, layout, m, s, o in (
+            ("K9 io rows tiny.en wo", "int8", "io", 5, 384, 384),
+            ("K9 io rows tiny.en wqkv", "int8", "io", 5, 384, 1152),
+            ("K9 io rows tiny.en mlp.w0", "int8", "io", 5, 384, 1536),
+            ("K9 io rows tiny.en mlp.w1", "int8", "io", 5, 1536, 384),
             ("K9 oi tiny.en logits", "int8", "oi", 5, 384, 51864),
             ("K9 io tiny.en cross-K", "int8", "io", 1500, 384, 384),
             ("K10 tiny.en mlp.w0", "int4", "io", 5, 384, 1536)):
@@ -155,22 +163,28 @@ def main() -> int:
             x, w_bf16, out_dtype=torch.float32))
 
     # K11 / K12
-    for name, s, h, kg, n_layer, w8a8 in (
-            ("K12 tiny.en kv_group 5 W8A8", 384, 6, 5, 4, True),
-            ("K11 large-v3 beam 8", 1280, 20, 8, 3, False)):
-        k, v = tens(n_layer, 1, 1536, s), tens(n_layer, 1, 1536, s)
+    for name, s, h, kg, g, n_layer, w8a8 in (
+            ("K12 tiny.en kv_group 5 W8A8", 384, 6, 5, 1, 4, True),
+            ("K12 tiny.en kv_group 5 exact", 384, 6, 5, 1, 4, False),
+            ("K12 tiny.en kv_group 1 W8A8", 384, 6, 1, 5, 4, True),
+            ("K12 large-v3 kv_group 5 W8A8", 1280, 20, 5, 1, 3, True),
+            ("K12 large-v3 kv_group 5 exact", 1280, 20, 5, 1, 3, False),
+            ("K11 large-v3 beam 8", 1280, 20, 8, 1, 3, False)):
+        k, v = tens(n_layer, g, 1536, s), tens(n_layer, g, 1536, s)
         x = quantize_cross_kv(CrossKV(k, v, 1500), h)
-        q = tens(kg, s)
-        lo = torch.full((kg,), 1500, dtype=torch.int32, device=dev)
+        q = tens(g * kg, s)
+        lo = torch.full((g * kg,), 1500, dtype=torch.int32, device=dev)
         d = s // h
-        kd = (x.k_q[-1, 0].float().view(1536, h, d)
-              * x.k_s[-1, 0, :, :h].float()[..., None])
-        vd = x.v_q[-1, 0].float().view(1536, h, d) * x.v_s[-1, 0, :h, None]
-        kd = kd.to(torch.bfloat16).transpose(0, 1)[None].expand(kg, h, 1536,
-                                                                d)
-        vd = vd.to(torch.bfloat16).transpose(0, 1)[None].expand(kg, h, 1536,
-                                                                d)
-        qd = q.view(kg, h, 1, d)
+        kd = (x.k_q[-1].float().view(g, 1536, h, d)
+              * x.k_s[-1, :, :, :h].float()[..., None])
+        vd = (x.v_q[-1].float().view(g, 1536, h, d)
+              * x.v_s[-1, :, None, :h, None])
+        # (g * kg, h, T, d): a group's kv_group rows see one K/V row
+        kd = kd.to(torch.bfloat16).transpose(1, 2)[:, None].expand(
+            g, kg, h, 1536, d).flatten(0, 1)
+        vd = vd.to(torch.bfloat16).transpose(1, 2)[:, None].expand(
+            g, kg, h, 1536, d).flatten(0, 1)
+        qd = q.view(g * kg, h, 1, d)
         mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
         record(name, lambda q=q, x=x, lo=lo, h=h, kg=kg, n_layer=n_layer,
                w8a8=w8a8: CA.cross_attention_quant(

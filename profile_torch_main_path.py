@@ -3,7 +3,7 @@
 
     python3 profile_torch_main_path.py [--model tiny.en] [--seconds 34]
                                        [--beam K] [--quantize int8|int4]
-                                       [--cross-kv-int8]
+                                       [--cross-kv-int8] [--root DIR]
 
 Drives ``WhisperContext.synthetic(model, seed=0)`` (bf16) ``.full(
 TranscribeParams(), audio)`` on the deterministic test clip (with
@@ -17,7 +17,8 @@ TranscribeParams(), audio)`` on the deterministic test clip (with
 3. one run under ``torch.profiler`` (CPU + CUDA activities): total device
    time of all kernels and copies, device time and calls per kernel name,
    kernel launches per decode step, and the quantized kernels' launches
-   per decode step (K9 and K10 count the per-window projections too).
+   per decode step (K9 and K10 count the per-window projections too), and
+   the device time of the quantized kernels K9-K12 by kernel name.
    The profiler slows the host, not the
    kernels, so the device busy share is that device time over the median
    wall of the unprofiled runs (the rest is the host driving the loop);
@@ -26,14 +27,19 @@ TranscribeParams(), audio)`` on the deterministic test clip (with
    (``WindowDecoder.decode``: prompt pass + token loop; greedy, or beam K
    with ``--beam``) at the main path's rows per stream, per decode step.
 
-Prints a human-readable breakdown and, as its last line, one JSON object.
-Needs a CUDA device; exits non-zero without one.
+``--root`` names the checkout whose ``godot_whisper_tpu_torch`` is
+profiled (default: this one), so that one call can profile a parent commit
+unpacked elsewhere and this tree in turns.  Prints a human-readable
+breakdown and, as its last line, one JSON object.  Needs a CUDA device;
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +47,14 @@ import time
 import numpy as np
 
 from chip_smoke import frozen_audio
+
+# The quantized kernels' device-side names, current and older ones (a
+# --root checkout may hold the older; there K12's exact mode reads as K11)
+FAMILIES = (("K9", r"qmm_io_rows8|qmm_oi_mma|qmm_io_tc|qmm_oi_rows"
+                   r"|qmm_io_rows<false>|qmm_tc<[01]>"),
+            ("K10", r"q4mm_rows|qmm_io_rows<true>|qmm_tc<2>"),
+            ("K11", r"xattn_q_kernel<\d+(, false)?>"),
+            ("K12", r"xattn_packed_kernel|xattn_q_kernel<\d+, true>"))
 
 
 def _kernel_us(evt) -> float:
@@ -67,10 +81,14 @@ def main() -> int:
                     default=None, help="decoder weight quantization")
     ap.add_argument("--cross-kv-int8", action="store_true",
                     help="int8 cross-attention K/V")
+    ap.add_argument("--root", default=None,
+                    help="checkout whose godot_whisper_tpu_torch is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
     from godot_whisper_tpu_torch.decode.window import WindowDecoder
@@ -126,6 +144,8 @@ def main() -> int:
     rows.sort(reverse=True)
     dev_total_us = sum(r[0] for r in rows)
     kernel_calls = sum(r[1] for r in rows)
+    family_us = {k: sum(us for us, _, key in rows if re.search(pat, key))
+                 for k, pat in FAMILIES}
 
     # ---- stage times at the main-path shapes
     pipe, cfg, params = ctx.pipeline, ctx.config, ctx.pipeline.params
@@ -180,6 +200,12 @@ def main() -> int:
           "step")
     print("quantized kernel launches per decode step: "
           + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()))
+    n_dec = max(ctx.timings.n_decode, 1)
+    print("quantized kernels' device time (us total, us per decode step, "
+          "share of device time): "
+          + ", ".join(f"{k} {us:.1f} {us / n_dec:.2f} "
+                      f"{us / max(dev_total_us, 1e-9):.3f}"
+                      for k, us in family_us.items()))
     print("top device time by kernel (us total, calls, name):")
     for us, n, key in rows[:15]:
         print(f"  {us:12.1f} {n:7d}  {key[:100]}")
@@ -191,6 +217,8 @@ def main() -> int:
         "card": smi, "model": args.model, "beam": args.beam,
         "quantize": args.quantize, "cross_kv_int8": args.cross_kv_int8,
         "quant_launches_per_step": per_step,
+        "package": os.path.dirname(gt.__file__),
+        "quant_device_us": family_us,
         "audio_s": args.seconds,
         "wall_s": walls, "steps": steps,
         "audio_s_per_s": args.seconds / wall,

@@ -587,3 +587,133 @@ def test_split_cache_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+# ------------------------------------- K9 / K12 redesigned (split, cluster) --
+def _qmm_check(cuda, layout, m, s, o, seed=9, offset=0):
+    """K9 against its plain version; ``offset`` > 0 puts the weight at that
+    byte offset into a larger buffer (not 16-byte aligned)."""
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(seed)
+    x, w = _qmm_case(gen, cuda, m, s, o)
+    qt = Q.quantize_tensor((w.t() if layout == "oi" else w).to(cuda),
+                           reduce_axis=1 if layout == "oi" else 0)
+    if offset:
+        buf = torch.zeros(qt.q.numel() + offset, dtype=torch.int8,
+                          device=cuda)
+        buf[offset:] = qt.q.reshape(-1)
+        qt = Q.QuantTensor(buf[offset:].view(qt.q.shape), qt.s)
+        assert qt.q.data_ptr() % 16
+    got = Q.quant_matmul(x, qt, layout=layout)
+    again = Q.quant_matmul(x, qt, layout=layout)
+    torch.cuda.synchronize()
+    want = Q.quant_matmul_plain(x, qt, layout=layout)
+    w_abs = (Q.dequantize(qt).abs().t() if layout == "oi"
+             else Q.dequantize(qt).abs())
+    assert _qmm_within(got, want, x, w_abs)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", list(range(1, 18)))
+@pytest.mark.parametrize("layout,s,o", [
+    ("io", 1000, 200),   # S not a whole number of slices, O not of tiles
+    ("io", 2080, 1104),  # 16-byte rows, several slices and tiles
+    ("oi", 1000, 200),   # S not a multiple of 16: byte loads
+    ("oi", 448, 3000),   # a partial k-block and a partial column tile
+])
+def test_quant_matmul_rows_at_every_row_count(cuda, m, layout, s, o):
+    """K9's decode-row routes at 1..16 rows (17: the tensor-core route),
+    within 1e-5 of each element's sum of |terms|, bitwise equal from call
+    to call (the slices' partials are added in a fixed order)."""
+    _qmm_check(cuda, layout, m, s, o)
+
+
+@pytest.mark.parametrize("layout,m,s,o", [
+    ("io", 5, 384, 1152), ("io", 40, 384, 384), ("oi", 5, 384, 3000),
+    ("oi", 40, 128, 200)])
+def test_quant_matmul_unaligned_weight(cuda, layout, m, s, o):
+    """A weight one byte into a larger buffer takes the byte-load paths and
+    stays correct (no misaligned 16-byte load)."""
+    _qmm_check(cuda, layout, m, s, o, offset=1)
+
+
+def _xattn_inputs(cuda, s, h, kg, g, t, lo, n_layer=2, seed=10):
+    from godot_whisper_tpu_torch.models.model import CrossKV, \
+        quantize_cross_kv
+    gen = torch.Generator().manual_seed(seed)
+    k = torch.randn(n_layer, g, t, s, generator=gen).to(cuda, torch.bfloat16)
+    v = torch.randn(n_layer, g, t, s, generator=gen).to(cuda, torch.bfloat16)
+    x = quantize_cross_kv(CrossKV(k, v, t), h)
+    q = torch.randn(g * kg, s, generator=gen).to(cuda, torch.bfloat16)
+    lo_t = torch.tensor(lo, dtype=torch.int32, device=cuda)
+    return q, x, lo_t
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["exact", "w8a8"])
+@pytest.mark.parametrize("s,h,kg,g,t,lo", [
+    (384, 6, 5, 1, 1536, [10] * 5),                  # lo below one slice
+    (384, 6, 5, 1, 1536, [100, 77, 130, 1, 64]),     # lo off the slices
+    (384, 6, 5, 1, 1536, [1100] * 5),   # block 2: CTAs with no valid slot
+    (384, 6, 1, 3, 1536, [1500, 700, 33]),           # kv_group 1
+    (384, 6, 8, 1, 1536, [1500, 3, 64, 65, 512, 513, 1024, 1535]),
+    (1280, 20, 5, 1, 1536, [1500] * 5),              # large-v3 widths
+    (384, 6, 5, 2, 768, [700] * 5 + [200] * 5),      # T 768: 256 blocks
+    (512, 32, 4, 1, 512, [300, 1, 511, 512]),        # head dim 16
+])
+def test_xattn_packed_cluster_edges(cuda, w8a8, s, h, kg, g, t, lo):
+    """K12's cluster kernel at its edges against the plain version (exact:
+    1e-4; W8A8: 1e-4 plus one flipped round(127 p) per (row, head)), and
+    bitwise equal from call to call."""
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    q, x, lo_t = _xattn_inputs(cuda, s, h, kg, g, t, lo)
+    assert CA.is_packed(h, kg)
+    kw = dict(n_head=h, kv_group=kg, layer=1)
+    got = CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                   t_valid=lo_t, w8a8=w8a8, **kw)
+    again = CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                     t_valid=lo_t, w8a8=w8a8, **kw)
+    torch.cuda.synchronize()
+    want = CA.cross_attention_quant_plain(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                          lo_t, w8a8=w8a8, **kw)
+    err = (got - want).abs()
+    tol = 1e-4 + (CA.w8a8_flip_limit(q, x.k_q, x.k_s, x.v_s, lo_t, **kw)
+                  if w8a8 else 0.0)
+    assert bool((err <= tol).all())
+    assert torch.equal(got, again)
+
+
+def test_quant_kernels_replay_in_a_cuda_graph(cuda):
+    """K9's three routes (the io rows with split partials and tickets) and
+    K12 in both modes captured in one CUDA graph: every replay gives the
+    eager result bit for bit."""
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(11)
+    x5, w_io = _qmm_case(gen, cuda, 5, 1536, 384)
+    x_tc, _ = _qmm_case(gen, cuda, 1500, 1536, 384)
+    _, w_oi = _qmm_case(gen, cuda, 5, 1536, 3000)
+    q_io = Q.quantize_tensor(w_io.to(cuda), reduce_axis=0)
+    q_oi = Q.quantize_tensor(w_oi.t().contiguous().to(cuda), reduce_axis=1)
+    q, xkv, lo = _xattn_inputs(cuda, 384, 6, 5, 1, 1536, [1100] * 5)
+
+    def step():
+        return (Q.quant_matmul(x5, q_io, layout="io"),
+                Q.quant_matmul(x_tc, q_io, layout="io"),
+                Q.quant_matmul(x5, q_oi, layout="oi"),
+                *(CA.cross_attention_quant(q, xkv.k_q, xkv.k_s, xkv.v_q,
+                                           xkv.v_s, n_head=6, t_valid=lo,
+                                           kv_group=5, layer=1, w8a8=m)
+                  for m in (True, False)))
+    want = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
