@@ -24,10 +24,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
    K9 int8 matmul in its three routes (io decode rows, oi logits rows
    on the tensor cores, the 1500-row io cross-K/V projection through
-   the pipelined tensor-core tile), each timed, K10 int4 matmul, K11 /
-   K12 int8 cross-attention (exact and W8A8; K12's cluster kernel also
-   where a CTA's slice holds no valid slot and at 256-slot blocks, and
-   bitwise equal from call to call).  And the long-context encoder
+   the pipelined tensor-core tile), each timed, K10 int4 matmul in its two
+   routes (decode rows, the 1500-row projection's tensor-core tile), each
+   timed, K11 / K12 int8 cross-attention (one cluster kernel: exact and
+   W8A8, also where a CTA's slice holds no valid slot and at 256-slot
+   blocks, and bitwise equal from call to call).  And the long-context encoder
    attention K13 at phase 10's shape and at large-v3 widths, f32 and
    bf16.  The bf16 encoder
    attentions (K2, K13) run on the tensor cores; each is held to its own
@@ -53,11 +54,12 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    rows, oi logits rows and the io tensor-core route) and K12 must
    launch, and no cross-attention through K4 (kv_group 5);
    (2) quantize="int4" with TranscribeParams(strategy=BEAM_SEARCH,
-   cross_kv_int8=True): K10, K9 (oi), K12, K6 and K7 must launch.
+   cross_kv_int8=True): K10 (decode rows and the tensor-core route), K9
+   (oi), K12, K6 and K7 must launch.
    Counters zeroed just before each.
 8. wide quantized route -- phase 6's large-v3 widths with quantize="int4",
-   cross_kv_int8 and beam 8 (8 x 20 heads > 128): K11, K10 and K8 must
-   launch, K12 must not.
+   cross_kv_int8 and beam 8 (8 x 20 heads > 128): K11, K10 (both routes)
+   and K8 must launch, K12 must not.
 9. file path -- phase 4's bf16 weights exported as an F32 ggml file (the
    port's exporter), WhisperContext.from_file and from_buffer of it, each
    .full(TranscribeParams(), 34 s): segments equal phase 4's token for
@@ -839,7 +841,9 @@ def check_quant_kernels(torch, rng):
     qmm_case("int8", "oi", 8, 1280, 51866, "large-v3 logits")
     qmm_case("int8", "io", 1500, 1280, 1280, "large-v3 cross-K")
     qmm_case("int4", "io", 5, 384, 1536, "tiny.en mlp.w0", "qmatmul4")
-    qmm_case("int4", "io", 1500, 384, 384, "tiny.en cross-K")
+    qmm_case("int4", "io", 5, 1536, 384, "tiny.en mlp.w1: split in two")
+    qmm_case("int4", "io", 1500, 384, 384, "tiny.en cross-K", "qmatmul4_tc")
+    qmm_case("int4", "io", 40, 256, 200, "ragged O, plain loads")
     qmm_case("int4", "io", 8, 1280, 3840, "large-v3 wqkv")
     qmm_case("int4", "io", 8, 5120, 1280, "large-v3 mlp.w1")
     qmm_case("int4", "io", 1500, 1280, 1280, "large-v3 cross-K")
@@ -923,6 +927,7 @@ def check_quant_kernels(torch, rng):
     xattn_case(384, 6, 5, 4, False, "tiny.en T 768: 256-slot blocks", t=768,
                t_valid=700)
     xattn_case(1280, 20, 8, 3, False, "large-v3 beam 8", "xattn_wide")
+    xattn_case(1280, 20, 7, 3, False, "large-v3 best_of 7")
     return recs
 
 
@@ -1295,6 +1300,7 @@ def main() -> int:
         decode_attention.group_launches.clear()
         quant_matmul.layout_launches.clear()
         quant_matmul.route_launches.clear()
+        quant_matmul4.route_launches.clear()
         xattn_q_packed.mode_launches.clear()
         c.timings.reset()
         torch.cuda.synchronize()
@@ -1306,6 +1312,8 @@ def main() -> int:
         n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
         for route in ("io_rows", "oi_rows", "tc"):
             n[f"quant_matmul_{route}"] = quant_matmul.route_launches[route]
+        for route in ("rows", "tc"):
+            n[f"quant_matmul4_{route}"] = quant_matmul4.route_launches[route]
         n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
         grp = dict(decode_attention.group_launches)
         tm = c.timings
@@ -1372,11 +1380,12 @@ def main() -> int:
                           "cross-KV (W8A8), beam 5, 34.0 s audio", ctx4,
                           gt.TranscribeParams(strategy=beam,
                                               cross_kv_int8=True), 34.0)
-    if not (n7b["quant_matmul4"] and n7b["quant_matmul_oi"]
+    if not (n7b["quant_matmul4_rows"] and n7b["quant_matmul4_tc"]
+            and n7b["quant_matmul_oi"]
             and n7b["xattn_q_packed"] and n7b["fused_filter_topk"]
             and n7b["split_beam_attention"]) or grp7b.get(5):
-        fail("quantized path 2 did not go through K10, K9 (oi), K12, K6 and "
-             "K7")
+        fail("quantized path 2 did not go through K10 (rows and the "
+             "tensor-core route), K9 (oi), K12, K6 and K7")
     del ctx4
 
     # ---- phase 8: the wide quantized route (K11): large-v3 widths, int4
@@ -1389,10 +1398,11 @@ def main() -> int:
                      "10.0 s audio", wctx4,
                      beam_params(beam_size=8, best_of=8, temperature_inc=0.0,
                                  cross_kv_int8=True), 10.0)
-    if not (n8["xattn_q_wide"] and n8["quant_matmul4"]
+    if not (n8["xattn_q_wide"] and n8["quant_matmul4_rows"]
+            and n8["quant_matmul4_tc"]
             and n8["reorder_kv_live"]) or n8["xattn_q_packed"]:
-        fail("the wide quantized route did not go through K11, K10 and K8 "
-             "(or went through K12)")
+        fail("the wide quantized route did not go through K11, K10 (both "
+             "routes) and K8 (or went through K12)")
     del wctx4
 
     tmp = tempfile.mkdtemp(prefix="gwt_chip_smoke_")
@@ -1412,6 +1422,7 @@ def main() -> int:
            "kv_reorder": "kv_reorder.py:68",
            "qmatmul_io": "qmatmul.py:264", "qmatmul": "qmatmul.py:264",
            "qmatmul_xk": "qmatmul.py:264", "qmatmul4": "qmatmul.py:151",
+           "qmatmul4_tc": "qmatmul.py:151",
            "xattn_wide": "cross_attention.py:50",
            "xattn_packed": "cross_attention.py:128",
            "enc_attn_long": "attention.py:53"}
@@ -1428,15 +1439,16 @@ def main() -> int:
              "qmatmul_io": ("quant_matmul[io rows]", "qmatmul.cu"),
              "qmatmul": ("quant_matmul[oi rows]", "qmatmul.cu"),
              "qmatmul_xk": ("quant_matmul[io tc]", "qmatmul.cu"),
-             "qmatmul4": ("quant_matmul4", "qmatmul.cu"),
+             "qmatmul4": ("quant_matmul4[rows]", "qmatmul.cu"),
+             "qmatmul4_tc": ("quant_matmul4[tc]", "qmatmul.cu"),
              "xattn_wide": ("xattn_q_wide", "cross_attn.cu"),
              "xattn_packed": ("xattn_q_packed", "cross_attn.cu"),
              "enc_attn_long": ("flash_attention_long", "enc_attn_long.cu")}
     # launches: K1-K5 from the greedy main path (phase 4), K6 and K7 from
     # the beam path (phase 5), K8 from the wide beam route (phase 6), K9
-    # (each route) and K12 from quantized path 1, K10 from path 2, K11 from
-    # the wide quantized route (phases 7-8), K13 from the long audio
-    # context (phase 10)
+    # (each route) and K12 from quantized path 1, K10 (each route) from
+    # path 2, K11 from the wide quantized route (phases 7-8), K13 from the
+    # long audio context (phase 10)
     n_launch = {"mel": launches["log_mel_raw"],
                 "enc_attn": launches["flash_attention_bh"],
                 "decode_attn_k3": groups.get(1, 0),
@@ -1448,7 +1460,8 @@ def main() -> int:
                 "qmatmul_io": n7["quant_matmul_io_rows"],
                 "qmatmul": n7["quant_matmul_oi_rows"],
                 "qmatmul_xk": n7["quant_matmul_tc"],
-                "qmatmul4": n7b["quant_matmul4"],
+                "qmatmul4": n7b["quant_matmul4_rows"],
+                "qmatmul4_tc": n7b["quant_matmul4_tc"],
                 "xattn_wide": n8["xattn_q_wide"],
                 "xattn_packed": n7["xattn_q_packed"],
                 "enc_attn_long": n10["flash_attention_long"]}

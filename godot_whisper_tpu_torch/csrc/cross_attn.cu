@@ -1,15 +1,16 @@
 // K11/K12: single-query cross-attention over an int8 merged-head cache.
 //
 // Replaces the TPU kernels of godot_whisper_tpu/ops/cross_attention.py:
-//   K11 `_xattn_q_kernel` (exact mode; one K/V row per query row, or with
-//       `shared_kv` a beam group's rows sharing one K/V row; the route when
-//       kv_group * n_head > 128), softmax blocks of 256 slots;
+//   K11 `_xattn_q_kernel` (exact mode; with `shared_kv` a beam group's rows
+//       share one K/V row; the route when kv_group * n_head > 128), softmax
+//       blocks of 256 slots;
 //   K12 `_xattn_q_group_packed_kernel` (kv_group * n_head <= 128, kv_group 1
 //       included), softmax blocks of 512 slots when T % 512 == 0, in exact
 //       mode or the default W8A8 mode.
 // The TPU kernels' segment matrices, 128-lane head padding and row packing
 // are lane-layout artefacts; both compute one function per (query row,
-// head) with kv_group, the softmax block and the mode as arguments.
+// head) with kv_group, the softmax block and the mode as arguments, and
+// one kernel template, `xattn_packed_kernel`, computes it for both.
 //
 //   q (B, S) bf16; k_q, v_q (L, G, T, S) int8 read at `layer` by pointer
 //   offset; k_s (L, G, T, 128) bf16, one scale per (slot, head); v_s
@@ -34,43 +35,49 @@
 // tiny.en (T 1536, S 384, bf16 k_s) 2 * 1500 * 384 + 1500 * 6 * 2 = 1.17
 // MB per layer, ~0.35 us at 3.35 TB/s; what a call costs is latency.
 //
-// K12 (`xattn_packed_kernel`): a thread-block cluster of blk / 64 CTAs of
-// 256 threads (8 CTAs for 512-slot blocks, 4 for 256) per (group, head),
-// grid (cluster, heads, groups): 48 CTAs for one tiny.en stream, 160 at
-// large-v3 widths (one CTA per (group, head) would give 6 and 20).
-// CTA r of a cluster takes slots [64 r, 64 r + 64) of every softmax block
-// and loads its slices of up to 3 blocks at once by 16-byte cp.async (one
-// memory round trip after lo and q); a slice no row may attend is
-// not loaded (it contributes exactly 0: p = exp(-1e30 - m) with m finite
-// once slot 0 is seen; every slice is loaded when some row has lo <= 0).
-//   1. scores of the CTA's slots for every row of the group: lanes split a
-//      slot's D bytes in 16-byte pieces (dp4a on int8 in W8A8), then a
-//      shuffle sum; each slice maximum is stored into the shared memory of
-//      every CTA of the cluster (distributed shared memory);
+// `xattn_packed_kernel`: a thread-block cluster of blk / 64 CTAs of 256
+// threads per (group, head) (8 CTAs for 512-slot blocks, 4 for 256), grid
+// (cluster, heads, groups): K12 at tiny.en 48 CTAs for one stream, K11 at
+// large-v3 widths and beam 8 80 (one CTA per (group, head) would give 6
+// and 20).  Up to 8 rows of a group share each CTA, so nothing depends on
+// kv_group * n_head.  CTA r of a cluster takes slots [64 r, 64 r + 64) of
+// every softmax block and loads its slices of up to 3 blocks at once by
+// 16-byte cp.async (one memory round trip after lo and q); a slice no row
+// may attend is not loaded (it contributes exactly 0: p = exp(-1e30 - m)
+// with m finite once slot 0 is seen; every slice is loaded when some row
+// has lo <= 0).
+//   1. scores of the CTA's slots for every row of the group.  W8A8: lanes
+//      split a slot's D bytes in 16-byte pieces (dp4a), then a shuffle sum.
+//      Exact: mma.sync m16n8k16 (bf16 in, f32 sums), 16 slots of K as A
+//      (int8 widened exactly to bf16 in registers) and the group's rows as
+//      B (N = 8, rows past kv_group zero); the d order within every k-step
+//      is permuted alike in A and B, so a lane's A fragments are D / 4
+//      contiguous bytes of a K row and its B fragments D / 4 contiguous
+//      bf16 of q, held in registers for the whole call.  Each slice
+//      maximum is stored into the shared memory of every CTA of the
+//      cluster (distributed shared memory);
 //   2. cluster barrier; each CTA has every slice maximum of every block, so
 //      each computes the blocks' running maxima, the values the one-CTA
 //      kernel has; p, its rounding, the slice's f32 sum of the unrounded p
 //      (stored into every CTA);
-//   3. P.V of each slice: W8A8 as dp4a on the rounded p and V (a 4 x 4 byte
-//      transpose in registers; exact int32), exact mode f32 FMA on the bf16
-//      p; each (row, dim) partial is stored into the CTA that owns the pair
-//      (CTA r owns 1 / cluster of them);
+//   3. P.V of each slice.  W8A8: dp4a on the rounded p and V (a 4 x 4 byte
+//      transpose in registers; exact int32).  Exact: mma.sync with 16 dims
+//      of V as A (M), the slots as K and the bf16 p as B; `ldmatrix.trans`
+//      reads V's int8 bytes as 16-bit pairs, so mma row m of a 16-dim tile
+//      holds dim 2m (m < 8) or 2 (m - 8) + 1, and V rows are padded to an
+//      odd number of 16-byte units (no bank conflicts).  Each (row, dim)
+//      partial is stored into the CTA that owns the pair (CTA r owns 1 /
+//      cluster of them);
 //   4. cluster barrier; an owner adds the cluster's partials in rank order,
 //      block by block: W8A8 the exact integer sum, then one `/ 127` (`*
 //      f32(1/127)`), so acc = acc * corr + pv rounds as in the one-CTA
 //      kernel; l likewise from the slices' sums.
-// Two cluster barriers per call up to 3 blocks (T <= 1536), no read of
-// another CTA's memory, so no CTA waits before it exits.  Only l and exact
-// mode's f32 P.V and score dot change their order of summation.  Results
-// are bitwise equal from call to call, and the kernel keeps no state
-// between calls (a CUDA graph replays it).
-//
-// K11 (`xattn_q_kernel`, exact mode): grid (G,
-// n_head), 128 threads; a block walks its head's D columns of K, then of
-// V, in tiles of 64 slots within each softmax block, scores all kv_group
-// rows against each tile, keeps the block's scores in shared memory for
-// the max / exp / rounding pass, and accumulates P.V for (row, dim) pairs
-// in registers.
+// Two cluster barriers per group of up to 3 blocks (T <= 1536 at 512-slot
+// blocks, T <= 768 at 256), no read of another CTA's memory, so no CTA
+// waits before it exits.  Only l, W8A8's P.V across the cluster, and exact
+// mode's two contractions change their order of summation.  Results are
+// bitwise equal from call to call, and the kernel keeps no state between
+// calls (a CUDA graph replays it).
 #include <cooperative_groups.h>
 #include <limits.h>
 
@@ -78,184 +85,55 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;      // slots per shared-memory tile
-constexpr int kMaxRows = 8;    // MAX_DECODERS
-constexpr int kMaxBlk = 512;   // largest softmax block
-constexpr int kScalePad = 128; // k_s / v_s head axis (the TPU lane tile)
-constexpr int kMaxCluster = 8; // K12: CTAs per (group, head)
-
-// A tile of kTile slots x D int8 values (4-byte word loads, D % 4 == 0) into
-// shared memory as floats.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(const int8_t* __restrict__ src,
-                                              int S, float (*dst)[D + 1]) {
-  constexpr int D4 = D / 4;
-#pragma unroll
-  for (int i = threadIdx.x; i < kTile * D4; i += kThreads) {
-    const int j = i / D4, d4 = i % D4;
-    const int word = __ldg(reinterpret_cast<const int*>(src + (size_t)j * S
-                                                        + 4 * d4));
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dst[j][4 * d4 + e] = (float)(int8_t)((word >> (8 * e)) & 0xFF);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    xattn_q_kernel(const __nv_bfloat16* __restrict__ q,
-                   const int8_t* __restrict__ kq,
-                   const __nv_bfloat16* __restrict__ ks,
-                   const int8_t* __restrict__ vq, const float* __restrict__ vs,
-                   const int* __restrict__ lo, float* __restrict__ out,
-                   int layer, int n_groups, int T, int S, int R, int blk,
-                   float scale) {
-  constexpr int kPer = kMaxRows * D / kThreads;  // (row, dim) pairs / thread
-  __shared__ float s_q[kMaxRows][D];
-  __shared__ float s_p[kMaxRows][kMaxBlk];
-  __shared__ float s_kv[kTile][D + 1];
-  __shared__ float s_m[kMaxRows], s_l[kMaxRows], s_corr[kMaxRows];
-  __shared__ int s_lo[kMaxRows];
-  __shared__ int s_end;
-
-  const int g = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const size_t lg = (size_t)layer * n_groups + g;
-  const size_t kv_base = lg * T * S + (size_t)h * D;
-  const size_t ks_base = lg * T * kScalePad + h;
-  const float v_scale = vs[lg * kScalePad + h];
-
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    s_q[r][d] = to_f32(q[(size_t)(g * R + r) * S + h * D + d]);
-  }
-  if (tid == 0) {
-    int end = 0;
-    for (int r = 0; r < R; ++r) {
-      s_lo[r] = lo[g * R + r];
-      s_m[r] = GWT_NEG;
-      s_l[r] = 0.f;
-      end = max(end, s_lo[r]);
-    }
-    // softmax blocks up to the group's live prefix (at least one block)
-    s_end = min(max((end + blk - 1) / blk, 1) * blk, T);
-  }
-  __syncthreads();
-  const int c_end = s_end;
-
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < c_end; c0 += blk) {
-    // ---- scores of the block's slots for every row of the group
-    for (int t0 = 0; t0 < blk; t0 += kTile) {
-      load_tile_f32<D>(kq + kv_base + (size_t)(c0 + t0) * S, S, s_kv);
-      __syncthreads();
-      for (int i = tid; i < R * kTile; i += kThreads) {
-        const int r = i / kTile, j = i % kTile, c = c0 + t0 + j;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(s_q[r][d], s_kv[j][d], dot);
-        float sc = dot * scale;
-        sc = sc * __bfloat162float(ks[ks_base + (size_t)c * kScalePad]);
-        s_p[r][t0 + j] = c < s_lo[r] ? sc : GWT_NEG;
-      }
-      __syncthreads();
-    }
-
-    // ---- online softmax over the block: running max, f32 sum of the
-    // unrounded p, p rounded to bf16 for P.V
-    for (int r = warp; r < R; r += kThreads / 32) {
-      float mx = GWT_NEG;
-      for (int j = lane; j < blk; j += 32) mx = fmaxf(mx, s_p[r][j]);
-      const float m_old = s_m[r];
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < blk; j += 32) {
-        const float p = expf(s_p[r][j] - m_new);
-        sum += p;
-        s_p[r][j] = __bfloat162float(__float2bfloat16(p));
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        s_corr[r] = corr;
-        s_l[r] = s_l[r] * corr + sum;
-        s_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- P.V over the block, then acc = acc * corr + block sum
-    float pb[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) pb[i] = 0.f;
-    for (int t0 = 0; t0 < blk; t0 += kTile) {
-      load_tile_f32<D>(vq + kv_base + (size_t)(c0 + t0) * S, S, s_kv);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = tid + i * kThreads;
-        if (idx < R * D) {
-          const int r = idx / D, d = idx % D;
-          float a = pb[i];
-#pragma unroll 16
-          for (int j = 0; j < kTile; ++j) a = fmaf(s_p[r][t0 + j], s_kv[j][d], a);
-          pb[i] = a;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < R * D) {
-        const int r = idx / D;
-        acc[i] = acc[i] * s_corr[r] + pb[i];
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < R * D) {
-      const int r = idx / D, d = idx % D;
-      out[(size_t)(g * R + r) * S + h * D + d] =
-          acc[i] / fmaxf(s_l[r], 1e-30f) * v_scale;
-    }
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* lo, void* out, int layer, int n_groups,
-           int T, int S, int n_head, int R, int blk, float scale,
-           cudaStream_t stream) {
-  xattn_q_kernel<D><<<dim3(n_groups, n_head), kThreads, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)kq, (const __nv_bfloat16*)ks,
-      (const int8_t*)vq, (const float*)vs, (const int*)lo, (float*)out,
-      layer, n_groups, T, S, R, blk, scale);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------- K12: a cluster --
-namespace k12 {
-
 namespace cg = cooperative_groups;
 using namespace gwt_q8;
-constexpr int kSlice = 64;  // slots of each softmax block per CTA
-constexpr int kGroup = 3;   // softmax blocks a CTA holds at once
-constexpr int kT12 = 256;   // threads of a CTA
+
+constexpr int kMaxRows = 8;     // MAX_DECODERS: rows of a group, mma's N
+constexpr int kScalePad = 128;  // k_s / v_s head axis (the TPU lane tile)
+constexpr int kMaxCluster = 8;  // CTAs per (group, head)
+constexpr int kSlice = 64;      // slots of each softmax block per CTA
+constexpr int kGroup = 3;       // softmax blocks a CTA holds at once
+constexpr int kThreads = 256;   // threads of a CTA
+constexpr int kPbS = kSlice + 8;  // bf16 per row of the rounded p (exact)
+
+// Bytes per V row in shared memory: an odd number of 16-byte units, so the
+// 8 rows an ldmatrix phase reads fall on distinct banks.
+__host__ __device__ constexpr int v_stride(int d) {
+  return d == 16 ? 16 : d + 16;
+}
 
 // Sum over the 16 lanes of a half warp.
 __device__ __forceinline__ float sum16(float v) {
 #pragma unroll
   for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Four 8 x 8 matrices of 16-bit elements, transposed: lane l addresses row
+// l % 8 of matrix l / 8; lane (g, t) = (l / 4, l % 4) gets elements (2t, g)
+// and (2t + 1, g) of each.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// N 32-bit words from shared memory at p (aligned to 4 N bytes).
+template <int N>
+__device__ __forceinline__ void lds_words(const int8_t* p,
+                                          uint32_t (&w)[N]) {
+  if constexpr (N == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
 }
 
 // Grid (blk / kSlice, n_head, G), one cluster of blk / kSlice CTAs per
@@ -266,7 +144,7 @@ __device__ __forceinline__ float sum16(float v) {
 // shared memory of the CTA that owns each (row, dim) pair.  Nothing is read
 // from another CTA's shared memory, so no CTA waits before it exits.
 template <int D, bool W8A8>
-__global__ void __launch_bounds__(kT12)
+__global__ void __launch_bounds__(kThreads, 2)
     xattn_packed_kernel(const __nv_bfloat16* __restrict__ q,
                         const int8_t* __restrict__ kq,
                         const __nv_bfloat16* __restrict__ ks,
@@ -277,15 +155,21 @@ __global__ void __launch_bounds__(kT12)
                         float scale) {
   constexpr int D4 = D / 4, kCh = D / 16;  // words, 16-byte pieces a slot
   constexpr int kSpi = 32 / kCh;           // slots a warp scores at once
+  constexpr int kVS = v_stride(D);
+  constexpr int kWarps = kThreads / 32;
+  // W8A8 keeps q in shared memory (to quantize it) and round(127 p) as
+  // bytes; exact mode keeps q in registers and p as bf16
+  constexpr int kQR = W8A8 ? kMaxRows : 1;
+  constexpr int kPqG = W8A8 ? kGroup : 1, kPbG = W8A8 ? 1 : kGroup;
   __shared__ __align__(16) int8_t s_k[kGroup][kSlice][D];
-  __shared__ __align__(16) int8_t s_v[kGroup][kSlice][D];
+  __shared__ __align__(16) int8_t s_v[kGroup][kSlice][kVS];
   __shared__ uint32_t s_ksw[kGroup][kSlice];  // bf16 pair holding k_s[h]
-  __shared__ __align__(16) float s_q[kMaxRows][D];
-  __shared__ __align__(16) int s_qi[kMaxRows][D4];
-  __shared__ float s_qss[kMaxRows];
-  // scores, then (exact mode) the bf16-rounded p
-  __shared__ __align__(16) float s_p[kGroup][kMaxRows][kSlice];
-  __shared__ __align__(4) uint8_t s_pq[kGroup][kMaxRows][kSlice];  // W8A8
+  __shared__ __align__(16) float s_q[kQR][D];
+  __shared__ __align__(16) int s_qi[kQR][D4];
+  __shared__ float s_qss[kQR];
+  __shared__ __align__(16) float s_p[kGroup][kMaxRows][kSlice];  // scores
+  __shared__ __align__(4) uint8_t s_pq[kPqG][kMaxRows][kSlice];
+  __shared__ __align__(16) uint16_t s_pb[kPbG][kMaxRows][kPbS];
   __shared__ float s_corr[kGroup][kMaxRows];
   __shared__ float s_l[kMaxRows];
   __shared__ int s_lo[kMaxRows];
@@ -301,17 +185,28 @@ __global__ void __launch_bounds__(kT12)
   const int rank = (int)cluster.block_rank(), nc = (int)cluster.num_blocks();
   const int h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const size_t lg = (size_t)layer * n_groups + g;
   const int8_t* kbase = kq + lg * T * S + (size_t)h * D;
   const int8_t* vbase = vq + lg * T * S + (size_t)h * D;
   const __nv_bfloat16* ksbase = ks + lg * T * kScalePad + (h & ~1);
 
-  constexpr int kQv = (kMaxRows * D + kT12 - 1) / kT12;
+  // W8A8: q of every row as floats; exact: this lane's B fragments of the
+  // score product, D / 4 bf16 of row gid from dim D / 4 * tig
+  constexpr int kQv = W8A8 ? (kMaxRows * D + kThreads - 1) / kThreads : 1;
   float qv[kQv];
+  uint32_t qf[D / 8];
+  if constexpr (W8A8) {
 #pragma unroll
-  for (int i = 0; i < kQv; ++i) {
-    const int idx = tid + i * kT12, r = idx / D, d = idx % D;
-    qv[i] = r < R ? to_f32(q[(size_t)(g * R + r) * S + h * D + d]) : 0.f;
+    for (int i = 0; i < kQv; ++i) {
+      const int idx = tid + i * kThreads, r = idx / D, d = idx % D;
+      qv[i] = r < R ? to_f32(q[(size_t)(g * R + r) * S + h * D + d]) : 0.f;
+    }
+  } else {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(
+        q + (size_t)(g * R + gid) * S + h * D + D4 * tig);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) qf[i] = gid < R ? __ldg(src + i) : 0u;
   }
   const float v_scale = vs[lg * kScalePad + h];
   if (warp == 0) {
@@ -339,7 +234,7 @@ __global__ void __launch_bounds__(kT12)
   auto issue = [&](int b, int gb) {
     const int c0 = b * blk + rank * kSlice;
     if (!live(c0)) return;
-    for (int i = tid; i < kSlice * kCh; i += kT12) {
+    for (int i = tid; i < kSlice * kCh; i += kThreads) {
       const int j = i / kCh, c = i % kCh;
       const size_t off = (size_t)(c0 + j) * S + 16 * c;
       cp_async16(&s_k[gb][j][16 * c], kbase + off);
@@ -351,14 +246,14 @@ __global__ void __launch_bounds__(kT12)
   for (int gb = 0; gb < min(kGroup, nb); ++gb) issue(gb, gb);
   cp_async_commit();
 
+  if constexpr (W8A8) {
 #pragma unroll
-  for (int i = 0; i < kQv; ++i) {
-    const int idx = tid + i * kT12;
-    if (idx < kMaxRows * D) s_q[idx / D][idx % D] = qv[i];
-  }
-  __syncthreads();
-  if (W8A8) {
-    for (int r = warp; r < R; r += kT12 / 32) {
+    for (int i = 0; i < kQv; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < kMaxRows * D) s_q[idx / D][idx % D] = qv[i];
+    }
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
       float a = 0.f;
       for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(s_q[r][d]));
       a = warp_max(a);
@@ -376,8 +271,8 @@ __global__ void __launch_bounds__(kT12)
     }
   }
 
-  // half warp (row pr, slots 4 * l16 .. + 4) in the softmax steps; thread
-  // (row, 4 dims) in P.V; the (row, dim) pairs this CTA owns, one a thread
+  // half warp (row pr, slots 4 * l16 .. + 4) in the softmax steps; the
+  // (row, dim) pairs this CTA owns, one a thread
   const int pr = tid >> 4, l16 = tid & 15;
   const int per = (R * D + nc - 1) / nc;
   const int own = rank * per + tid;
@@ -395,31 +290,23 @@ __global__ void __launch_bounds__(kT12)
     __syncthreads();
 
     // ---- 1. scores of the slices' slots for every row of the group
-    for (int gb = 0; gb < ng; ++gb) {
-      const int c0 = (b0 + gb) * blk + rank * kSlice;
-      if (!live(c0)) {
-        for (int i = tid; i < kMaxRows * kSlice; i += kT12)
-          s_p[gb][i / kSlice][i % kSlice] = GWT_NEG;
-        continue;
-      }
-      for (int j0 = warp * kSpi; j0 < kSlice; j0 += kSpi * (kT12 / 32)) {
-        const int j = j0 + lane / kCh, c = lane % kCh, slot = c0 + j;
-        const uint4 kv =
-            *reinterpret_cast<const uint4*>(&s_k[gb][j][16 * c]);
-        const uint32_t kw = s_ksw[gb][j];
-        const float ksv = __uint_as_float((h & 1) ? kw & 0xFFFF0000u
-                                                  : kw << 16);
-        float kf[4][4];
-        if (!W8A8) {
-          i8x4_f32(kv.x, kf[0]);
-          i8x4_f32(kv.y, kf[1]);
-          i8x4_f32(kv.z, kf[2]);
-          i8x4_f32(kv.w, kf[3]);
+    if constexpr (W8A8) {
+      for (int gb = 0; gb < ng; ++gb) {
+        const int c0 = (b0 + gb) * blk + rank * kSlice;
+        if (!live(c0)) {
+          for (int i = tid; i < kMaxRows * kSlice; i += kThreads)
+            s_p[gb][i / kSlice][i % kSlice] = GWT_NEG;
+          continue;
         }
-        // all kMaxRows rows unconditionally (rows past R are never
-        // stored), so the rows' dependency chains interleave
-        float sc[kMaxRows];
-        if (W8A8) {
+        for (int j0 = warp * kSpi; j0 < kSlice; j0 += kSpi * kWarps) {
+          const int j = j0 + lane / kCh, c = lane % kCh, slot = c0 + j;
+          const uint4 kv =
+              *reinterpret_cast<const uint4*>(&s_k[gb][j][16 * c]);
+          const uint32_t kw = s_ksw[gb][j];
+          const float ksv = __uint_as_float((h & 1) ? kw & 0xFFFF0000u
+                                                    : kw << 16);
+          // all kMaxRows rows unconditionally (rows past R are never
+          // stored), so the rows' dependency chains interleave
           int dot[kMaxRows];
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
@@ -434,30 +321,56 @@ __global__ void __launch_bounds__(kT12)
 #pragma unroll
             for (int r = 0; r < kMaxRows; ++r)
               dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
-#pragma unroll
-          for (int r = 0; r < kMaxRows; ++r) sc[r] = (float)dot[r] * s_qss[r];
-        } else {
-#pragma unroll
-          for (int r = 0; r < kMaxRows; ++r) {
-            float dot = 0.f;
-#pragma unroll
-            for (int e = 0; e < 16; ++e)
-              dot = fmaf(s_q[r][16 * c + e], kf[e >> 2][e & 3], dot);
-            sc[r] = dot;
-          }
-#pragma unroll
-          for (int o = 1; o < kCh; o <<= 1)
+          if (c == 0) {
 #pragma unroll
             for (int r = 0; r < kMaxRows; ++r)
-              sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], o);
-#pragma unroll
-          for (int r = 0; r < kMaxRows; ++r) sc[r] = sc[r] * scale;
+              if (r < R)
+                s_p[gb][r][j] = slot < s_lo[r]
+                                    ? (float)dot[r] * s_qss[r] * ksv
+                                    : GWT_NEG;
+          }
         }
-        if (c == 0) {
+      }
+    } else {
+      // a warp's item: 16 slots (mma's M) of one slice against the rows
+      for (int it = warp; it < ng * (kSlice / 16); it += kWarps) {
+        const int gb = it / (kSlice / 16), j0 = (it % (kSlice / 16)) * 16;
+        const int c0 = (b0 + gb) * blk + rank * kSlice;
+        if (!live(c0)) {
+          for (int i = lane; i < kMaxRows * 16; i += 32)
+            s_p[gb][i / 16][j0 + i % 16] = GWT_NEG;
+          continue;
+        }
+        uint32_t k0w[kCh], k8w[kCh];  // slots j0 + gid and j0 + gid + 8
+        lds_words<kCh>(&s_k[gb][j0 + gid][D4 * tig], k0w);
+        lds_words<kCh>(&s_k[gb][j0 + gid + 8][D4 * tig], k8w);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        // k-step st: mma k 2 tig + {0, 1} is dim D4 tig + 4 st + {0, 1},
+        // k 2 tig + 8 + {0, 1} is dim D4 tig + 4 st + {2, 3}, in A and B
 #pragma unroll
-          for (int r = 0; r < kMaxRows; ++r)
-            if (r < R)
-              s_p[gb][r][j] = slot < s_lo[r] ? sc[r] * ksv : GWT_NEG;
+        for (int st = 0; st < kCh; ++st) {
+          float f0[4], f1[4];
+          i8x4_f32(k0w[st], f0);
+          i8x4_f32(k8w[st], f1);
+          const uint32_t a[4] = {bf16x2_exact(f0[0], f0[1]),
+                                 bf16x2_exact(f1[0], f1[1]),
+                                 bf16x2_exact(f0[2], f0[3]),
+                                 bf16x2_exact(f1[2], f1[3])};
+          const uint32_t b[2] = {qf[2 * st], qf[2 * st + 1]};
+          mma_bf16(c, a, b);
+        }
+        // c: slots j0 + gid (c[0], c[1]) and + 8 (c[2], c[3]); rows 2 tig
+        // and 2 tig + 1
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + gid + (e >= 2 ? 8 : 0), r = 2 * tig + (e & 1);
+          if (r < R) {
+            const uint32_t kw = s_ksw[gb][j];
+            const float ksv = __uint_as_float((h & 1) ? kw & 0xFFFF0000u
+                                                      : kw << 16);
+            s_p[gb][r][j] = c0 + j < s_lo[r] ? (c[e] * scale) * ksv
+                                             : GWT_NEG;
+          }
         }
       }
     }
@@ -503,40 +416,44 @@ __global__ void __launch_bounds__(kT12)
     for (int gb = 0; gb < kGroup; ++gb) {
       if (gb >= ng || !row_thread) break;  // whole warps leave together
       const float m_new = fmaxf(m_run, bm[gb]);
-      float4 v4 = *reinterpret_cast<const float4*>(&s_p[gb][pr][4 * l16]);
+      const float4 v4 =
+          *reinterpret_cast<const float4*>(&s_p[gb][pr][4 * l16]);
       float p[4] = {expf(v4.x - m_new), expf(v4.y - m_new),
                     expf(v4.z - m_new), expf(v4.w - m_new)};
       const float sum = sum16((p[0] + p[1]) + (p[2] + p[3]));
       if (pr < R) {
-        if (W8A8) {
+        if constexpr (W8A8) {
           uint32_t pk = 0;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             pk |= (uint32_t)(int)rintf(p[e] * 127.0f) << (8 * e);
           *reinterpret_cast<uint32_t*>(&s_pq[gb][pr][4 * l16]) = pk;
         } else {
-          v4 = make_float4(__bfloat162float(__float2bfloat16(p[0])),
-                           __bfloat162float(__float2bfloat16(p[1])),
-                           __bfloat162float(__float2bfloat16(p[2])),
-                           __bfloat162float(__float2bfloat16(p[3])));
-          *reinterpret_cast<float4*>(&s_p[gb][pr][4 * l16]) = v4;
+          uint32_t pk[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            pk[e] = __bfloat16_as_ushort(__float2bfloat16(p[e]));
+          *reinterpret_cast<uint2*>(&s_pb[gb][pr][4 * l16]) =
+              make_uint2(pk[0] | pk[1] << 16, pk[2] | pk[3] << 16);
         }
         if (l16 < nc)
           cluster.map_shared_rank(&s_l_in[gb][rank][pr], l16)[0] = sum;
         if (l16 == 0) s_corr[gb][pr] = expf(m_run - m_new);
+      } else if constexpr (!W8A8) {
+        // rows past R are mma's zero columns
+        *reinterpret_cast<uint2*>(&s_pb[gb][pr][4 * l16]) = make_uint2(0, 0);
       }
       m_run = m_new;
     }
     __syncthreads();
 
     // ---- 3. P.V of every slice, to the owners of its (row, dim) pairs
-    if (tid < R * D4) {
-      const int r = tid / D4, dq = tid % D4;
-      for (int gb = 0; gb < ng; ++gb) {
-        float pv[4] = {0.f, 0.f, 0.f, 0.f};
-        if (live((b0 + gb) * blk + rank * kSlice)) {
-          if (W8A8) {
-            int a[4] = {0, 0, 0, 0};
+    if constexpr (W8A8) {
+      if (tid < R * D4) {
+        const int r = tid / D4, dq = tid % D4;
+        for (int gb = 0; gb < ng; ++gb) {
+          int a[4] = {0, 0, 0, 0};
+          if (live((b0 + gb) * blk + rank * kSlice)) {
 #pragma unroll 4
             for (int j = 0; j < kSlice; j += 4) {
               const uint32_t w0 =
@@ -558,25 +475,60 @@ __global__ void __launch_bounds__(kT12)
               a[2] = __dp4a(pp, (int)__byte_perm(u01, u23, 0x5410), a[2]);
               a[3] = __dp4a(pp, (int)__byte_perm(u01, u23, 0x7632), a[3]);
             }
+          }
 #pragma unroll
-            for (int e = 0; e < 4; ++e) pv[e] = (float)a[e];
-          } else {
-#pragma unroll 8
-            for (int j = 0; j < kSlice; ++j) {
-              float f[4];
-              i8x4_f32(
-                  *reinterpret_cast<const uint32_t*>(&s_v[gb][j][4 * dq]), f);
-              const float pj = s_p[gb][r][j];
+          for (int e = 0; e < 4; ++e) {
+            const int pair = r * D + 4 * dq + e, dst = pair / per;
+            cluster.map_shared_rank(&s_pv_in[gb][0], dst)
+                [rank * per + pair - dst * per] = (float)a[e];
+          }
+        }
+      }
+    } else {
+      // a warp's item: 16 dims (mma's M) of one slice, the slots as K
+      for (int it = warp; it < ng * kCh; it += kWarps) {
+        const int gb = it / kCh, d0 = (it % kCh) * 16;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        if (live((b0 + gb) * blk + rank * kSlice)) {
 #pragma unroll
-              for (int e = 0; e < 4; ++e) pv[e] = fmaf(pj, f[e], pv[e]);
+          for (int k0 = 0; k0 < kSlice; k0 += 32) {
+            // slots k0 + lane: matrix i holds slots k0 + 8 i .. + 8 of
+            // dims d0 .. d0 + 16 as 16-bit pairs; lane (gid, tig) gets
+            // bytes (2 tig, 2 gid), (2 tig, 2 gid + 1), (2 tig + 1, 2 gid),
+            // (2 tig + 1, 2 gid + 1) of each
+            uint32_t t[4];
+            ldmatrix_x4_trans(t, &s_v[gb][k0 + lane][d0]);
+#pragma unroll
+            for (int hs = 0; hs < 2; ++hs) {
+              const int kb = k0 + 16 * hs;
+              float f0[4], f1[4];
+              i8x4_f32(t[2 * hs], f0);
+              i8x4_f32(t[2 * hs + 1], f1);
+              // mma row gid is dim d0 + 2 gid, row gid + 8 dim d0 + 2 gid + 1
+              const uint32_t a[4] = {bf16x2_exact(f0[0], f0[2]),
+                                     bf16x2_exact(f0[1], f0[3]),
+                                     bf16x2_exact(f1[0], f1[2]),
+                                     bf16x2_exact(f1[1], f1[3])};
+              const uint32_t b[2] = {
+                  *reinterpret_cast<const uint32_t*>(
+                      &s_pb[gb][gid][kb + 2 * tig]),
+                  *reinterpret_cast<const uint32_t*>(
+                      &s_pb[gb][gid][kb + 8 + 2 * tig])};
+              mma_bf16(c, a, b);
             }
           }
         }
+        // c: dims d0 + 2 gid (c[0], c[1]) and d0 + 2 gid + 1 (c[2], c[3]);
+        // rows 2 tig and 2 tig + 1
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int pair = r * D + 4 * dq + e, dst = pair / per;
-          cluster.map_shared_rank(&s_pv_in[gb][0], dst)
-              [rank * per + pair - dst * per] = pv[e];
+          const int r = 2 * tig + (e & 1);
+          if (r < R) {
+            const int pair = r * D + d0 + 2 * gid + (e >> 1),
+                      dst = pair / per;
+            cluster.map_shared_rank(&s_pv_in[gb][0], dst)
+                [rank * per + pair - dst * per] = c[e];
+          }
         }
       }
     }
@@ -621,7 +573,7 @@ int launch(bool w8a8, const void* q, const void* kq, const void* ks,
            float scale, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blk / kSlice, n_head, n_groups);
-  cfg.blockDim = dim3(kT12);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -646,58 +598,53 @@ int launch(bool w8a8, const void* q, const void* kq, const void* ks,
   return (int)cudaGetLastError();
 }
 
-}  // namespace k12
+// The checks both entries share, then the launch for the head size.
+int dispatch(bool w8a8, const void* q, const void* kq, const void* ks,
+             const void* vq, const void* vs, const void* lo, void* out,
+             int layer, int n_groups, int T, int S, int n_head, int kv_group,
+             int blk, float scale, cudaStream_t st) {
+  if (n_head < 1 || kv_group < 1 || kv_group > kMaxRows ||
+      n_head > kScalePad || (blk != 256 && blk != 512) || T % blk ||
+      S % n_head || ((uintptr_t)kq & 15) || ((uintptr_t)vq & 15) ||
+      ((uintptr_t)ks & 3) || ((uintptr_t)q & 3))
+    return (int)cudaErrorInvalidValue;
+  const int hd = S / n_head;
+  if (hd == 64)
+    return launch<64>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups, T,
+                      S, n_head, kv_group, blk, scale, st);
+  if (hd == 32)
+    return launch<32>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups, T,
+                      S, n_head, kv_group, blk, scale, st);
+  if (hd == 16)
+    return launch<16>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups, T,
+                      S, n_head, kv_group, blk, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// K11 (exact mode): head_dim 16, 32 or 64; kv_group <= 8; blk 256 or 512
-// dividing T; n_head <= 128.
+// Both entries: head_dim 16, 32 or 64; kv_group <= 8; n_head <= 128; blk
+// 256 or 512 dividing T, a cluster of blk / 64 CTAs per (group, head)
+// (ops/cross_attention.py::cluster_plan, wide_cluster_plan); k_q and v_q
+// 16-byte aligned, k_s and q 4-byte aligned.
+// K11: exact mode, any kv_group * n_head (the wide route).
 extern "C" int gwt_xattn_q(const void* q, const void* kq, const void* ks,
                            const void* vq, const void* vs, const void* lo,
                            void* out, int layer, int n_groups, int T, int S,
                            int n_head, int kv_group, int blk, float scale,
                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int hd = S / n_head;
-  if (kv_group < 1 || kv_group > kMaxRows || n_head > kScalePad ||
-      (blk != 256 && blk != 512) || T % blk || S % 4)
-    return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return launch<64>(q, kq, ks, vq, vs, lo, out, layer, n_groups, T, S,
-                      n_head, kv_group, blk, scale, st);
-  if (hd == 32)
-    return launch<32>(q, kq, ks, vq, vs, lo, out, layer, n_groups, T, S,
-                      n_head, kv_group, blk, scale, st);
-  if (hd == 16)
-    return launch<16>(q, kq, ks, vq, vs, lo, out, layer, n_groups, T, S,
-                      n_head, kv_group, blk, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(false, q, kq, ks, vq, vs, lo, out, layer, n_groups, T, S,
+                  n_head, kv_group, blk, scale, (cudaStream_t)stream);
 }
 
-// K12: head_dim 16, 32 or 64; kv_group <= 8 with kv_group * n_head <= 128;
-// blk 256 or 512 dividing T (a cluster of blk / 64 CTAs per group and head,
-// ops/cross_attention.py::cluster_plan); w8a8 0 = exact, 1 = W8A8; k_q and
-// v_q 16-byte aligned, k_s 4-byte aligned.
+// K12: kv_group * n_head <= 128; w8a8 0 = exact, 1 = W8A8.
 extern "C" int gwt_xattn_packed(const void* q, const void* kq, const void* ks,
                                 const void* vq, const void* vs,
                                 const void* lo, void* out, int layer,
                                 int n_groups, int T, int S, int n_head,
                                 int kv_group, int blk, int w8a8, float scale,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int hd = S / n_head;
-  if (kv_group < 1 || kv_group > kMaxRows || kv_group * n_head > kScalePad ||
-      (blk != 256 && blk != 512) || T % blk || S % n_head ||
-      ((uintptr_t)kq & 15) || ((uintptr_t)vq & 15) || ((uintptr_t)ks & 3))
-    return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return k12::launch<64>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups,
-                           T, S, n_head, kv_group, blk, scale, st);
-  if (hd == 32)
-    return k12::launch<32>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups,
-                           T, S, n_head, kv_group, blk, scale, st);
-  if (hd == 16)
-    return k12::launch<16>(w8a8, q, kq, ks, vq, vs, lo, out, layer, n_groups,
-                           T, S, n_head, kv_group, blk, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (kv_group * n_head > kScalePad) return (int)cudaErrorInvalidValue;
+  return dispatch(w8a8 != 0, q, kq, ks, vq, vs, lo, out, layer, n_groups, T,
+                  S, n_head, kv_group, blk, scale, (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
-// Helpers the int8 kernels share (qmatmul.cu: K9/K10; cross_attn.cu: K12):
-// exact int8 -> float / bf16 conversion by byte permutes, cp.async copies
-// into shared memory, and the two halves of a thread-block-cluster barrier.
+// Helpers the int8 kernels share (qmatmul.cu: K9/K10; cross_attn.cu:
+// K11/K12): exact int8 -> float / bf16 conversion by byte permutes,
+// cp.async copies into shared memory, the two halves of a thread-block-
+// cluster barrier, and mma.sync m16n8k16 on bf16 with f32 sums.
 #pragma once
 
 #include "common.cuh"
@@ -52,6 +53,16 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// c += a b: A 16 x 16 (row), B 16 x 8 (col) bf16 fragments, f32 c.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace gwt_q8

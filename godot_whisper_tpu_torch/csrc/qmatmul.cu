@@ -58,8 +58,30 @@
 //    are adjacent, and its results leave as float4 stores), one k-step
 //    ahead of the mma.sync that use them.  Shapes whose rows are not
 //    16-byte aligned take the one-stage `qmm_tc` below.
-// K10 (int4) has its own kernels: `q4mm_rows` (M <= 16; a block owns 64
-// columns, 4-byte loads, x staged in shared memory) and `qmm_tc<kIO4>`.
+// K10 (int4, groups of G rows) has two routes, built on K9's designs.  The
+// rounding point is the TPU kernel's: a group's f32 partial product over
+// the exact integer weights, times the group's f32 column scales, the
+// groups added in order (a slice of groups first, then the slices, as the
+// TPU kernel adds its weight slabs).
+//  - M <= 16 (about 24 calls a decode step at int4): bytes, S * O / 2
+//    plus the scales (tiny.en (384, 1536): 0.3 MB, 0.1 us).
+//    `q4mm_io_rows`: `qmm_io_rows8`'s 16-column CTAs, one packed byte row
+//    (two k of one group, from its two nibbles) per thread and pass, as
+//    many threads as the slice has byte rows (128 to 512); nibbles become
+//    floats by byte permutes.  A group's byte rows are whole warps: after
+//    each pass's reduce-scatter the owner of each (row, column) adds the
+//    group's warp sums in order, scales and adds the groups in order (the
+//    pass's scales arrive by cp.async beside its weight loads).  Past
+//    512 byte rows the axis is cut on group boundaries over a cluster
+//    (`ops/qmatmul.py::io4_rows_plan`), merged as K9's.
+//  - M > 16 (the 1500-row cross-K/V projections, the prompt pass):
+//    operations, as K9's.  `q4mm_io_tc`: `qmm_io_tc`'s 32 x 64 tiles and
+//    4-stage cp.async ring over 32 packed byte rows a stage (half a group
+//    at G 128, half the weight bytes of K9's stage); a lane's weight word
+//    gives the B fragments of two k-steps (low and high nibbles) by a
+//    byte permute, a mask and one bf16x2 FMA each; per-group accumulators
+//    scaled into the output's at each group's end.  Unaligned shapes take
+//    the same tiles through plain loads.
 #include <cooperative_groups.h>
 
 #include "int8_async.cuh"
@@ -82,15 +104,6 @@ __device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ p,
   for (int j = 0; j < 16; ++j)
     if (j < n_valid) w[j >> 2] |= (uint32_t)p[j] << (8 * (j & 3));
   return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ------------------------------------------- K9 io, decode rows (M <= 16) --
@@ -554,127 +567,370 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-// ------------------------------------------------ K10 int4 io, decode rows --
-constexpr int kRT = 8;         // x rows per pass over the weight
-constexpr int kThreads = 256;
-constexpr int kKC = 256;       // x columns staged per chunk (>= the int4 G)
-constexpr int kU = 8;          // weight words a thread has in flight
-
-// x[m0 + m][k0 + k] for m < kRT, k < kKC into xs as f32: a fixed number of
-// independent loads per thread (all in flight together), zeros past the mr
-// live rows and the kc live columns.
-__device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
-                                        float (*xs)[kKC], int m0, int mr,
-                                        int k0, int kc, int S) {
+// ------------------------------------------- K10 int4 io, decode rows --
+// The eight int4 of a word as exact floats (stored +8): lo[e] from the low
+// nibble of byte e, hi[e] from its high nibble; the float with bits
+// 0x4B0000nn is 2^23 + nn (one byte permute), minus 2^23 + 8.
+__device__ __forceinline__ void u4x8_f32(uint32_t u, float (&lo)[4],
+                                         float (&hi)[4]) {
+  const uint32_t l = u & 0x0F0F0F0Fu, h = (u >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-  for (int it = 0; it < kRT * kKC / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int m = i / kKC, k = i % kKC;
-    xs[m][k] = m < mr && k < kc
-                   ? to_f32(x[(size_t)(m0 + m) * S + k0 + k]) : 0.f;
+  for (int e = 0; e < 4; ++e) {
+    lo[e] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540 + e)) -
+            8388616.f;
+    hi[e] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540 + e)) -
+            8388616.f;
   }
 }
 
-// Four consecutive bytes at p, zero past n_valid; one 32-bit load when the
-// caller knows p is 4-byte aligned (vec).
-__device__ __forceinline__ void load4(const uint8_t* __restrict__ p,
-                                      int n_valid, int vec, uint8_t b[4]) {
-  if (vec && n_valid >= 4) {
-    const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+// Rows m0 .. m0 + NR of x against the CTA's slice [b0, b1) of packed byte
+// rows (whole groups) of its 16 columns.  A pass gives each thread one
+// byte row (two k of one group, its x values in registers); a group's
+// G / 2 byte rows are whole warps, so after a warp's reduce-scatter the
+// owner of each (row, column) adds the group's warp sums in order,
+// multiplies by the group's scale and adds the groups in order.  The sum
+// over the slice is written into out (n_split 1) or stored into the shared
+// memory of the cluster rank that adds that (row, column) up, as K9's.
+template <int NR>
+__device__ __forceinline__ void q4_rows_chunk(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const float* __restrict__ s, float* __restrict__ out, float* inbox,
+    int S, int O, int m0, int b0, int b1, int group, int n_split, int per,
+    int vec, float (*red)[kChunkRows][kCW], float (*s_sc)[kCW]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col = blockIdx.x * kCW;
+  const int hg = group / 2;                      // byte rows of a group
+  const int pass = ((int)blockDim.x / hg) * hg;  // whole groups a pass
+  const int wpg = hg / 32;                       // warps of a group
+  const bool pair_owner = tid < NR * kCW;
+  const int om = tid / kCW, oc = tid % kCW, gc = col + oc;
+  auto load = [&](int pb) {
+    const int br = pb + tid;
+    return tid < pass && br < b1
+               ? load16(w + (size_t)br * O + col, O - col, vec)
+               : zero4();
+  };
+  float tot = 0.f;  // the owner's (row, column): scaled groups, in order
+  uint4 wv = load(b0);
+  for (int pb = b0; pb < b1; pb += pass) {
+    const uint4 wn = pb + pass < b1 ? load(pb + pass) : zero4();
+    // the scales of this pass's groups at the CTA's columns, in flight
+    // with the loads
+    const int g0 = pb / hg, ng = min(pass, b1 - pb) / hg;
+    if (tid < ng * kCW) {
+      const int gi = tid / kCW, c = tid % kCW;
+      if (col + c < O)
+        cp_async4(&s_sc[gi][c], s + (size_t)(g0 + gi) * O + col + c);
+      else
+        s_sc[gi][c] = 0.f;
+    }
+    cp_async_commit();
+    const int br = pb + tid;
+    const bool act = tid < pass && br < b1;
+    const int g = br / hg, kl = g * group + br - g * hg;  // low nibble's k
+    float xl[NR], xh[NR];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = (u >> (8 * j)) & 0xFF;
-  } else {
+    for (int m = 0; m < NR; ++m) {
+      const __nv_bfloat16* xr = x + (size_t)(m0 + m) * S + kl;
+      xl[m] = act ? to_f32(xr[0]) : 0.f;
+      xh[m] = act ? to_f32(xr[hg]) : 0.f;
+    }
+    float acc[NR][16];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = j < n_valid ? p[j] : 0;
-  }
-}
-
-// A block owns 64 output columns: 16 column quads x 16 slices of the
-// contraction axis; the slices' sums meet in shared memory at the end.
-// Each thread issues kU weight loads before it uses any of them, so a pass
-// costs a few memory latencies rather than one per row.
-__global__ void __launch_bounds__(kThreads)
-    q4mm_rows(const __nv_bfloat16* __restrict__ x,
-              const uint8_t* __restrict__ w, const float* __restrict__ s,
-              float* __restrict__ out, int M, int S, int O, int group,
-              int vec) {
-  __shared__ float xs[kRT][kKC];
-  __shared__ float red[16][kRT][64];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * 64 + tx * 4;
-  const int chunk = group;
-
-  for (int m0 = 0; m0 < M; m0 += kRT) {
-    const int mr = min(kRT, M - m0);
-    float acc[kRT][4];
+    for (int m = 0; m < NR; ++m)
 #pragma unroll
-    for (int m = 0; m < kRT; ++m)
+      for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+    const uint32_t wd[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-    for (int k0 = 0; k0 < S; k0 += chunk) {
-      const int kc = min(chunk, S - k0);
-      __syncthreads();
-      stage_x(x, xs, m0, mr, k0, kc, S);
-      __syncthreads();
-      // this group's byte rows start at k0 / 2; its f32 partial product
-      // is scaled by the group's scales once, then added in
-      const int h = group / 2;
-      float part[kRT][4];
+    for (int q = 0; q < 4; ++q) {
+      float lo[4], hi[4];
+      u4x8_f32(wd[q], lo, hi);
 #pragma unroll
-      for (int m = 0; m < kRT; ++m)
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) part[m][j] = 0.f;
-      for (int r = ty; r < h; r += 16 * kU) {
-        uint8_t b[kU][4];
-#pragma unroll
-        for (int u = 0; u < kU; ++u)
-          load4(w + (size_t)(k0 / 2 + r + 16 * u) * O + c0,
-                r + 16 * u < h ? O - c0 : 0, vec, b[u]);
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          if (r + 16 * u < h) {
-            const int rr = r + 16 * u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float lo = (float)((int)(b[u][j] & 0xF) - 8);
-              const float hi = (float)((int)(b[u][j] >> 4) - 8);
-#pragma unroll
-              for (int m = 0; m < kRT; ++m) {
-                part[m][j] = fmaf(xs[m][rr], lo, part[m][j]);
-                part[m][j] = fmaf(xs[m][rr + h], hi, part[m][j]);
-              }
-            }
-          }
+        for (int m = 0; m < NR; ++m) {
+          acc[m][4 * q + e] = fmaf(xl[m], lo[e], acc[m][4 * q + e]);
+          acc[m][4 * q + e] = fmaf(xh[m], hi[e], acc[m][4 * q + e]);
         }
-      }
-      const int g = k0 / group;
+    }
+    // the warp's 32 byte rows: reduce-scatter as K9's
+    scatter_half<NR, 8>(acc, lane);
+    scatter_half<NR, 4>(acc, lane);
+    scatter_half<NR, 2>(acc, lane);
+    scatter_half<NR, 1>(acc, lane);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float sc = c0 + j < O ? s[(size_t)g * O + c0 + j] : 0.f;
+    for (int m = 0; m < NR; ++m)
+      acc[m][0] += __shfl_xor_sync(0xffffffffu, acc[m][0], 1);
+    const int c_lane = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4 +
+                       ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+    if (!(lane & 1)) {
 #pragma unroll
-        for (int m = 0; m < kRT; ++m) acc[m][j] += part[m][j] * sc;
+      for (int m = 0; m < NR; ++m) red[warp][m][c_lane] = acc[m][0];
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (pair_owner) {
+      for (int i = 0; i < ng; ++i) {
+        float t = red[i * wpg][om][oc];
+        for (int v = 1; v < wpg; ++v) t += red[i * wpg + v][om][oc];
+        tot += t * s_sc[i][oc];
       }
     }
+    __syncthreads();  // red and s_sc are reused by the next pass
+    wv = wn;
+  }
+  if (n_split > 1 && m0 == 0) cluster_wait();
+  if (!pair_owner) return;
+  if (n_split == 1) {
+    if (gc < O) out[(size_t)(m0 + om) * O + gc] = tot;
+  } else {
+    const int pair = (m0 + om) * kCW + oc, owner = pair / per;
+    cg::this_cluster().map_shared_rank(
+        inbox, owner)[blockIdx.y * per + pair - owner * per] = tot;
+  }
+}
 
+// Grid (ceil(O / 16), n_split) in clusters of (1, n_split), blockDim.x
+// threads (at least 128, at most T; a multiple of 32): NR1 rows in the
+// first chunk and NR2 (0 or 1..8) in the second, slices of `slice` byte
+// rows (whole groups; ops/qmatmul.py::io4_rows_plan).  With n_split > 1,
+// rank r adds pairs [r * per, r * per + per) over the cluster in rank
+// order after one cluster barrier.
+template <int NR1, int NR2>
+__global__ void __launch_bounds__(rows_threads(NR1))
+    q4mm_io_rows(const __nv_bfloat16* __restrict__ x,
+                 const uint8_t* __restrict__ w, const float* __restrict__ s,
+                 float* __restrict__ out, int M, int S, int O, int group,
+                 int slice, int n_split, int vec) {
+  constexpr int T = rows_threads(NR1);
+  __shared__ float red[T / 32][kChunkRows][kCW];
+  __shared__ float s_sc[T / 32][kCW];  // a pass's group scales
+  __shared__ float inbox[2 * kChunkRows * kCW + kMaxSplit];
+  if (n_split > 1) cluster_arrive_relaxed();
+  const int b0 = blockIdx.y * slice, b1 = min(S / 2, b0 + slice);
+  const int per = (M * kCW + n_split - 1) / n_split;
+  q4_rows_chunk<NR1>(x, w, s, out, inbox, S, O, 0, b0, b1, group, n_split,
+                     per, vec, red, s_sc);
+  if constexpr (NR2 > 0)
+    q4_rows_chunk<NR2>(x, w, s, out, inbox, S, O, kChunkRows, b0, b1, group,
+                       n_split, per, vec, red, s_sc);
+  if (n_split == 1) return;
+  cg::this_cluster().sync();
+  const int own = blockIdx.y * per + threadIdx.x;
+  if (threadIdx.x < per && own < M * kCW) {
+    float part[kMaxSplit];
 #pragma unroll
-    for (int m = 0; m < kRT; ++m)
+    for (int k = 0; k < kMaxSplit; ++k)
+      part[k] = k < n_split ? inbox[k * per + threadIdx.x] : 0.f;
+    float t = part[0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[ty][m][tx * 4 + j] = acc[m][j];
+    for (int k = 1; k < kMaxSplit; ++k)
+      if (k < n_split) t += part[k];
+    const int gc = blockIdx.x * kCW + own % kCW;
+    if (gc < O) out[(size_t)(own / kCW) * O + gc] = t;
+  }
+}
+
+using Rows4Kernel = void (*)(const __nv_bfloat16*, const uint8_t*,
+                             const float*, float*, int, int, int, int, int,
+                             int, int);
+const Rows4Kernel kRows4Kernels[17] = {
+    nullptr,              q4mm_io_rows<1, 0>, q4mm_io_rows<2, 0>,
+    q4mm_io_rows<3, 0>,   q4mm_io_rows<4, 0>, q4mm_io_rows<5, 0>,
+    q4mm_io_rows<6, 0>,   q4mm_io_rows<7, 0>, q4mm_io_rows<8, 0>,
+    q4mm_io_rows<8, 1>,   q4mm_io_rows<8, 2>, q4mm_io_rows<8, 3>,
+    q4mm_io_rows<8, 4>,   q4mm_io_rows<8, 5>, q4mm_io_rows<8, 6>,
+    q4mm_io_rows<8, 7>,   q4mm_io_rows<8, 8>};
+
+int launch_io4_rows(const __nv_bfloat16* x, const uint8_t* w,
+                    const float* s, float* out, int M, int S, int O,
+                    int group, int slice, int n_split, int vec,
+                    cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((O + kCW - 1) / kCW, n_split);
+  // enough threads for the slice (one byte row each) and the 128 owners
+  const int t = M <= 5 ? rows_threads(5) : rows_threads(8);
+  cfg.blockDim = dim3(min(t, max(128, slice)));
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kRows4Kernels[M], x, w, s, out, M, S,
+                                 O, group, slice, n_split, vec);
+}
+
+// ------------------------------------------------ K10 int4 io, M > 16 --
+// qmm_io_tc's tiles and ring over the packed weight: a stage holds 32 byte
+// rows of one group (byte rows r0 .. r0 + 32 of group g) and the 64 x
+// columns they multiply, gG + r0 + [0, 32) (their low nibbles) then gG +
+// G/2 + r0 + [0, 32) (their high nibbles).
+constexpr int kBR = 32;  // packed byte rows a stage
+
+struct Tc4Stage {
+  uint16_t x[TBM][kXS];  // bf16 bits
+  uint8_t w[kBR][kWS];
+};
+
+// Two nibbles (bits 0-3 and 16-19 of t, stored +8) as a bf16 pair: the
+// bf16 with bits 0x430n is 128 + n exactly, minus 136 by one bf16x2 FMA.
+__device__ __forceinline__ uint32_t nib_bf16x2(uint32_t t) {
+  const uint32_t v = (t & 0x000F000Fu) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+
+// VEC: x and W 16-byte aligned and O % 16 == 0 (16-byte cp.async, float4
+// stores); else the same tiles by plain loads.  4 warps (2 x 2) of 16 rows
+// x 32 columns, the column order of qmm_io_tc.  Per stage and 16 byte
+// rows, a lane reads one word (4 columns) of 4 weight rows and turns it
+// into the B fragments of two k-steps: the low nibbles against x columns
+// 16 hs .., the high ones against 32 + 16 hs ..; the next half's words
+// are read before this one's mma.sync.  The mma.sync sums go into a
+// group's accumulators, which are scaled by the group's f32 scales and
+// added into the output's at the group's end (the TPU kernel's rounding
+// point: G = 128 is two stages, 8 k-steps).
+template <bool VEC>
+__global__ void __launch_bounds__(kTcThreads)
+    q4mm_io_tc(const __nv_bfloat16* __restrict__ x,
+               const uint8_t* __restrict__ w, const float* __restrict__ s,
+               float* __restrict__ out, int M, int S, int O, int group) {
+  __shared__ __align__(16) Tc4Stage sm[kStages];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
+  const int m_base = blockIdx.y * TBM, n_base = blockIdx.x * TBN;
+  const int hg = group / 2, nk = S / 2 / kBR;
+
+  auto load_stage = [&](int st, int kt) {
+    const int br0 = kt * kBR, g = br0 / hg;
+    const int klo = g * group + br0 - g * hg;
+#pragma unroll
+    for (int i = tid; i < TBM * 8; i += kTcThreads) {
+      const int r = i / 8, c = i % 8, gm = m_base + r;
+      const int gk = (c < 4 ? klo : klo + hg) + 8 * (c & 3);
+      if (VEC) {
+        cp_async16(&sm[st].x[r][8 * c], gm < M ? x + (size_t)gm * S + gk : x,
+                   gm < M ? 16 : 0);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (gm < M)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e >> 1] |= (uint32_t)__bfloat16_as_ushort(
+                             x[(size_t)gm * S + gk + e]) << (16 * (e & 1));
+        *reinterpret_cast<uint4*>(&sm[st].x[r][8 * c]) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int i = tid; i < kBR * (TBN / 16); i += kTcThreads) {
+      const int r = i / (TBN / 16), c = i % (TBN / 16), gn = n_base + 16 * c;
+      const uint8_t* src = w + (size_t)(br0 + r) * O + gn;
+      if (VEC)
+        cp_async16(&sm[st].w[r][16 * c], gn < O ? src : w, gn < O ? 16 : 0);
+      else
+        *reinterpret_cast<uint4*>(&sm[st].w[r][16 * c]) =
+            load16(src, O - gn, 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
+  }
+  float acc[4][4], part[4][4], sc[2][4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = part[ni][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    for (int i = tid; i < kRT * 64; i += kThreads) {
-      const int m = i / 64, c = i % 64, col = blockIdx.x * 64 + c;
-      float t = 0.f;
+    const int nt = kt + kStages - 1;
+    if (nt < nk) load_stage(nt % kStages, nt);
+    cp_async_commit();
+    const Tc4Stage& t = sm[kt % kStages];
+    const int br0 = kt * kBR, g = br0 / hg, r0 = br0 - g * hg;
+    if (r0 == 0) {
+      // this lane's columns n_base + wn + 4 * (2 * tig + h) + ni
 #pragma unroll
-      for (int y = 0; y < 16; ++y) t += red[y][m][c];
-      if (m < mr && col < O) out[(size_t)(m0 + m) * O + col] = t;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int col = n_base + wn + 4 * (2 * tig + h) + ni;
+          sc[h][ni] = col < O ? s[(size_t)g * O + col] : 0.f;
+        }
+    }
+    // words of byte rows 16 hs + 2 tig + {0, 1, 8, 9}, columns wn + 4 gid
+    auto words = [&](int hs, uint32_t (&wd)[4]) {
+      const uint8_t* wr = &t.w[16 * hs + 2 * tig][wn + 4 * gid];
+      wd[0] = *reinterpret_cast<const uint32_t*>(wr);
+      wd[1] = *reinterpret_cast<const uint32_t*>(wr + kWS);
+      wd[2] = *reinterpret_cast<const uint32_t*>(wr + 8 * kWS);
+      wd[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * kWS);
+    };
+    uint32_t wd[2][4];
+    words(0, wd[0]);
+#pragma unroll
+    for (int hs = 0; hs < 2; ++hs) {
+      if (hs == 0) words(1, wd[1]);
+      uint32_t alo[4], ahi[4];
+      ldmatrix_x4(alo, &t.x[wm + (lane & 15)][16 * hs + (lane >> 4) * 8]);
+      ldmatrix_x4(ahi,
+                  &t.x[wm + (lane & 15)][32 + 16 * hs + (lane >> 4) * 8]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        // byte ni of rows (0, 1) and (8, 9): one column, two k each
+        const uint32_t sel = 0x4400u + 0x1111u * ni;
+        const uint32_t t01 = __byte_perm(wd[hs][0], wd[hs][1], sel);
+        const uint32_t t89 = __byte_perm(wd[hs][2], wd[hs][3], sel);
+        const uint32_t blo[2] = {nib_bf16x2(t01), nib_bf16x2(t89)};
+        const uint32_t bhi[2] = {nib_bf16x2(t01 >> 4), nib_bf16x2(t89 >> 4)};
+        mma_bf16(part[ni], alo, blo);
+        mma_bf16(part[ni], ahi, bhi);
+      }
+    }
+    if (r0 + kBR == hg) {
+      // the group's f32 partial product times its f32 column scales
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[ni][e] += part[ni][e] * sc[e & 1][ni];
+          part[ni][e] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+  // for a fixed e the four n-tiles are four adjacent columns
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int gm = m_base + wm + gid + (e >= 2 ? 8 : 0);
+    const int gn = n_base + wn + 4 * (2 * tig + (e & 1));
+    if (gm >= M) continue;
+    if (VEC) {
+      if (gn < O)
+        *reinterpret_cast<float4*>(out + (size_t)gm * O + gn) =
+            make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        if (gn + ni < O) out[(size_t)gm * O + gn + ni] = acc[ni][e];
     }
   }
 }
 
 // ------------------------------------------- one-stage tensor-core tiles --
-// K10's int4 io route, K9's oi route above 16 rows, and K9's io route for
-// shapes the pipelined kernel does not take (unaligned rows).
+// K9's oi route above 16 rows, and K9's io route for shapes the pipelined
+// kernel does not take (unaligned rows).
 constexpr int BM = 64, BN = 64, BK = 32, kPad = 8;
 enum { kIO8 = 0, kOI8 = 1, kIO4 = 2 };
 
@@ -690,7 +946,7 @@ template <int LAYOUT>
 __global__ void __launch_bounds__(kTcThreads)
     qmm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
            const float* __restrict__ s, float* __restrict__ out, int M, int S,
-           int O, int group) {
+           int O) {
   __shared__ __align__(16) __nv_bfloat16 sA[BM][BK + kPad];
   __shared__ __align__(16) __nv_bfloat16 sB[BN][BK + kPad];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -699,13 +955,13 @@ __global__ void __launch_bounds__(kTcThreads)
   const int m_base = blockIdx.y * BM, n_base = blockIdx.x * BN;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  float acc[2][4][4], part[2][4][4];
+  float acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     for (int i = tid; i < BM * BK; i += kTcThreads) {
@@ -720,24 +976,12 @@ __global__ void __launch_bounds__(kTcThreads)
         sB[n][c] = __int2bfloat16_rn(v);
       }
     } else {
-      // io: rows of W along k, columns along n (coalesced across n).  int4:
-      // a 32-row tile lies in one half of one group (G % 64 == 0), so it
-      // reads one nibble of G/2-aligned byte rows.
-      const int g = LAYOUT == kIO4 ? k0 / group : 0;
-      const int r = LAYOUT == kIO4 ? k0 - g * group : 0;
-      const bool high = LAYOUT == kIO4 && r >= group / 2;
-      const size_t brow = LAYOUT == kIO4
-                              ? (size_t)g * (group / 2) + (high ? r - group / 2
-                                                                : r)
-                              : (size_t)k0;
+      // io: rows of W along k, columns along n (coalesced across n)
       for (int i = tid; i < BN * BK; i += kTcThreads) {
         const int kk = i / BN, n = i % BN, gn = n_base + n;
-        int v = 0;
-        if (gn < O && k0 + kk < S) {
-          const uint8_t b = w[(brow + kk) * O + gn];
-          v = LAYOUT == kIO4 ? (int)(high ? b >> 4 : b & 0xF) - 8
-                             : (int)(int8_t)b;
-        }
+        const int v = (gn < O && k0 + kk < S)
+                          ? (int)(int8_t)w[(size_t)(k0 + kk) * O + gn]
+                          : 0;
         sB[n][kk] = __int2bfloat16_rn(v);
       }
     }
@@ -763,28 +1007,9 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(LAYOUT == kIO4 ? part[mi][ni] : acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
     }
     __syncthreads();
-
-    if (LAYOUT == kIO4 && (k0 + BK) % group == 0) {
-      // the group's f32 partial product times its f32 column scales
-      const int g = k0 / group;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n_base + wn + ni * 8 + tig * 2 + e;
-          const float sc = col < O ? s[(size_t)g * O + col] : 0.f;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            acc[mi][ni][e] += part[mi][ni][e] * sc;
-            acc[mi][ni][e + 2] += part[mi][ni][e + 2] * sc;
-            part[mi][ni][e] = part[mi][ni][e + 2] = 0.f;
-          }
-        }
-    }
   }
 
 #pragma unroll
@@ -796,8 +1021,7 @@ __global__ void __launch_bounds__(kTcThreads)
         const int row = m_base + wm + mi * 16 + gid + (e >= 2 ? 8 : 0);
         const int col = n_base + wn + ni * 8 + tig * 2 + (e & 1);
         if (row < M && col < O)
-          out[(size_t)row * O + col] =
-              LAYOUT == kIO4 ? acc[mi][ni][e] : acc[mi][ni][e] * s[col];
+          out[(size_t)row * O + col] = acc[mi][ni][e] * s[col];
       }
 }
 
@@ -806,10 +1030,11 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // layout: 0 = int8 io (W (S, O)), 1 = int8 oi (W (O, S)), 2 = int4 io
-// (packed (S/2, O), scales (S/group, O), group % 64 == 0, group <= 256).
-// x (M, S) bf16, s f32, out (M, O) f32.  int8 io with M <= 16: n_split <= 8
-// slices of `slice` rows (ops/qmatmul.py::io_rows_plan), a cluster of them
-// per 64 columns.
+// (packed (S/2, O), scales (S/group, O), group % 64 == 0).  x (M, S) bf16,
+// s f32, out (M, O) f32.  With M <= 16, int8 io and int4 take n_split <=
+// 8 slices of `slice` rows (int8: weight rows, ops/qmatmul.py::
+// io_rows_plan; int4: packed byte rows of whole groups, io4_rows_plan), a
+// cluster of them per 16 columns.
 extern "C" int gwt_qmatmul(const void* x, const void* w, const void* s,
                            void* out, int M, int S, int O, int layout,
                            int group, int slice, int n_split, void* stream) {
@@ -820,25 +1045,34 @@ extern "C" int gwt_qmatmul(const void* x, const void* w, const void* s,
   float* o = (float*)out;
   if (M <= 0 || S <= 0 || O <= 0 || layout < 0 || layout > 2)
     return (int)cudaErrorInvalidValue;
-  if (layout == kIO4 && (group <= 0 || group % 64 || group > kKC || S % group))
+  if (layout == kIO4 && (group <= 0 || group % 64 || S % group))
+    return (int)cudaErrorInvalidValue;
+  // the rows kernels' slices: rows (int8) or byte rows (int4) of the axis
+  const int axis = layout == kIO4 ? S / 2 : S;
+  if (M <= 16 && layout != kOI8 &&
+      (slice <= 0 || n_split <= 0 || n_split > kMaxSplit ||
+       (long long)slice * (n_split - 1) >= axis ||
+       (long long)slice * n_split < axis ||
+       (layout == kIO4 && slice % (group / 2))))
     return (int)cudaErrorInvalidValue;
   if (M <= 16) {
     if (layout == kIO8) {
-      if (slice <= 0 || n_split <= 0 || n_split > kMaxSplit ||
-          (long long)slice * (n_split - 1) >= S ||
-          (long long)slice * n_split < S)
-        return (int)cudaErrorInvalidValue;
       const int vec = aligned16(w) && O % 16 == 0;
       const int e = launch_io_rows(xb, wb, sf, o, M, S, O, slice, n_split,
                                    vec, st);
       if (e) return e;
-    } else if (layout == kOI8) {
+    } else if (layout == kIO4) {
+      const int vec = aligned16(w) && O % 16 == 0;
+      const int e = launch_io4_rows(xb, wb, sf, o, M, S, O, group, slice,
+                                    n_split, vec, st);
+      if (e) return e;
+    } else {
       const int nt = M <= 8 ? 1 : 2;
       const size_t smem =
           (size_t)nt * 8 * (((S + 63) / 64) * 64 + 8) * sizeof(__nv_bfloat16);
       if (smem > kOiMaxSmem) {
         const dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM);
-        qmm_tc<kOI8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O, 0);
+        qmm_tc<kOI8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O);
       } else {
         const int vec = aligned16(w) && S % 16 == 0;
         const int xvec = aligned16(x) && S % 8 == 0;
@@ -848,24 +1082,23 @@ extern "C" int gwt_qmatmul(const void* x, const void* w, const void* s,
                                              xvec, smem, st);
         if (e) return e;
       }
-    } else {
-      const int vec = ((uintptr_t)w & 3) == 0 && O % 4 == 0;
-      q4mm_rows<<<(O + 63) / 64, kThreads, 0, st>>>(xb, wb, sf, o, M, S, O,
-                                                    group, vec);
     }
   } else {
     const dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM);
-    if (layout == kIO8 && aligned16(x) && aligned16(w) && S % 8 == 0 &&
-        O % 16 == 0)
-      qmm_io_tc<<<dim3((O + TBN - 1) / TBN, (M + TBM - 1) / TBM), kTcThreads,
-                  0, st>>>(xb, wb, sf, o, M, S, O);
+    const dim3 tc_grid((O + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+    const bool vec = aligned16(x) && aligned16(w) && O % 16 == 0;
+    if (layout == kIO8 && vec && S % 8 == 0)
+      qmm_io_tc<<<tc_grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O);
     else if (layout == kIO8)
-      qmm_tc<kIO8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O, 0);
+      qmm_tc<kIO8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O);
     else if (layout == kOI8)
-      qmm_tc<kOI8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O, 0);
+      qmm_tc<kOI8><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O);
+    else if (vec)
+      q4mm_io_tc<true><<<tc_grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S,
+                                                       O, group);
     else
-      qmm_tc<kIO4><<<grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S, O,
-                                                group);
+      q4mm_io_tc<false><<<tc_grid, kTcThreads, 0, st>>>(xb, wb, sf, o, M, S,
+                                                        O, group);
   }
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,14 @@ Dispatch follows the JAX package (``cross_attention.py:286-303``):
 
 - ``kv_group * n_head <= 128`` (kv_group 1 included): K12, the packed
   kernel, softmax blocks of 512 slots when T % 512 == 0 (else 256), in W8A8
-  mode by default or exact mode; a thread-block cluster of CTAs per (group,
-  head), each taking 64 slots of every block (``cluster_plan``), which
-  share the block's running max and add their P.V partials in rank order;
+  mode by default or exact mode;
 - otherwise K11, exact mode, softmax blocks of 256 slots.
+
+Both run one kernel template on the card: a thread-block cluster of CTAs
+per (group, head), each taking 64 slots of every block (``cluster_plan``,
+``wide_cluster_plan``), which share the block's running max and add their
+P.V partials in rank order.  K11 is that template's exact mode with
+256-slot blocks under its own entry and launch counter.
 
 The plain version repeats the kernels' arithmetic block by block (the
 online-softmax running max decides where p is rounded), so it agrees with
@@ -63,9 +67,24 @@ def cluster_plan(g: int, n_head: int, t_pad: int) -> Tuple[int, int]:
     and 4 for 256; grid (cluster, n_head, g).  CTA r of a cluster takes
     slots [64 r, 64 r + 64) of every block.  Shapes decide, never the
     valid lengths, so every call and graph replay has the same grid."""
-    blk = softmax_block(t_pad, True)
-    if g < 1 or n_head < 1 or t_pad % blk:
-        raise ValueError(f"cluster_plan: {g} groups, {n_head} heads, "
+    return _plan("cluster_plan", g, n_head, softmax_block(t_pad, True),
+                 t_pad)
+
+
+def wide_cluster_plan(g: int, n_head: int, t_pad: int) -> Tuple[int, int]:
+    """K11's slice and cluster size: (64, 4), its 256-slot softmax block
+    over a cluster of 4 CTAs per (group, head); grid (4, n_head, g), for
+    large-v3 widths at beam 8 and one stream 80 CTAs.  Up to 8 rows of a
+    group share each CTA, so the plan does not depend on kv_group; shapes
+    decide, never the valid lengths."""
+    return _plan("wide_cluster_plan", g, n_head, softmax_block(t_pad, False),
+                 t_pad)
+
+
+def _plan(what: str, g: int, n_head: int, blk: int,
+          t_pad: int) -> Tuple[int, int]:
+    if g < 1 or not 1 <= n_head <= H_PAD or t_pad % blk:
+        raise ValueError(f"{what}: {g} groups, {n_head} heads, "
                          f"{t_pad} slots")
     return CLUSTER_SLICE, blk // CLUSTER_SLICE
 
@@ -148,9 +167,12 @@ def w8a8_flip_limit(q, k_q, k_s, v_s, t_valid, *, n_head: int,
 
 
 def _check(fn_name: str, q, k_q, k_s, v_q, v_s, lo, *, n_head: int,
-           kv_group: int, layer: int, blk: int, align: int):
-    """Validate a K11 / K12 call; returns q as contiguous bf16."""
+           kv_group: int, layer: int, blk: int):
+    """Validate a K11 / K12 call; returns q as contiguous bf16 on a 4-byte
+    boundary (the kernel reads it by words)."""
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 4:
+        qb = qb.clone()
     K.require_cuda(fn_name, qb, k_q, k_s, v_q, v_s, lo)
     b, s = qb.shape
     n_layer, g, t_pad, s_k = k_q.shape
@@ -164,20 +186,23 @@ def _check(fn_name: str, q, k_q, k_s, v_q, v_s, lo, *, n_head: int,
             or not 1 <= kv_group <= MAX_KV_GROUP or g * kv_group != b
             or not 0 <= layer < n_layer or t_pad % blk
             or lo.dtype != torch.int32 or tuple(lo.shape) != (b,)
-            or k_q.data_ptr() % align or v_q.data_ptr() % align
+            or k_q.data_ptr() % 16 or v_q.data_ptr() % 16
             or k_s.data_ptr() % 4):
         raise ValueError(f"{fn_name}: q (B, S), k_q/v_q (L, B/kv_group, T, S) "
                          "int8, k_s (L, G, T, 128) bf16, v_s (L, G, 128) f32, "
                          "head dim 16|32|64, kv_group <= 8, T a multiple of "
-                         "the softmax block, t_valid (B,) int32")
+                         "the softmax block, t_valid (B,) int32, k_q / v_q "
+                         "16-byte aligned")
     return qb
 
 
 def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
                  layer: int) -> torch.Tensor:
-    """K11 on the card: exact mode, softmax blocks of 256 slots."""
+    """K11 on the card: exact mode, softmax blocks of 256 slots, a cluster
+    of CTAs per (group, head) (``wide_cluster_plan``)."""
+    sl, nc = wide_cluster_plan(k_q.shape[1], n_head, k_q.shape[2])
     qb = _check("xattn_q_wide", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
-                kv_group=kv_group, layer=layer, blk=256, align=4)
+                kv_group=kv_group, layer=layer, blk=sl * nc)
     b, s = qb.shape
     out = torch.empty((b, s), dtype=torch.float32, device=q.device)
     fn = K.entry("cross_attn", "gwt_xattn_q", (K.P,) * 7 + (K.I,) * 7
@@ -185,7 +210,7 @@ def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
     K.launch(fn, "xattn_q_wide", qb.data_ptr(), k_q.data_ptr(),
              k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
              out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
-             n_head, kv_group, 256, float((s // n_head) ** -0.5),
+             n_head, kv_group, sl * nc, float((s // n_head) ** -0.5),
              K.stream_ptr(q.device))
     xattn_q_wide.launches += 1
     return out
@@ -198,7 +223,7 @@ def xattn_q_packed(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
     (``cluster_plan``)."""
     sl, nc = cluster_plan(k_q.shape[1], n_head, k_q.shape[2])
     qb = _check("xattn_q_packed", q, k_q, k_s, v_q, v_s, lo, n_head=n_head,
-                kv_group=kv_group, layer=layer, blk=sl * nc, align=16)
+                kv_group=kv_group, layer=layer, blk=sl * nc)
     b, s = qb.shape
     out = torch.empty((b, s), dtype=torch.float32, device=q.device)
     fn = K.entry("cross_attn", "gwt_xattn_packed", (K.P,) * 7 + (K.I,) * 8

@@ -27,7 +27,10 @@ K9 takes one of three routes on the card (``quant_matmul.route_launches``):
 a cluster of CTAs by ``io_rows_plan``, the slices' sums added in order
 inside the launch),
 ``oi_rows`` (``oi``, at most 16 rows: the logits on the tensor cores) and
-``tc`` (more than 16 rows: pipelined tensor-core tiles).
+``tc`` (more than 16 rows: pipelined tensor-core tiles).  K10 takes one of
+two (``quant_matmul4.route_launches``): ``rows`` (at most 16 rows, the
+packed axis split on group boundaries by ``io4_rows_plan``) and ``tc``
+(more than 16 rows).
 """
 
 from __future__ import annotations
@@ -176,8 +179,8 @@ def quant_matmul4_plain(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ wrappers
 ROWS_MAX = 16         # x rows the decode-row kernels take
 ROW_TILE = 16         # output columns per CTA of the io decode-row kernel
-ROWS_PER_PASS = 256   # weight rows a pass covers (256 threads; 512 to 5 rows)
-MAX_WHOLE = 512       # contraction length a CTA takes without a split
+ROWS_PER_PASS = 256   # rows (K10: byte rows) a pass covers (256 threads)
+MAX_WHOLE = 512       # rows (K10: byte rows) a CTA takes without a split
 MAX_SPLIT = 8         # slices of the contraction axis: a portable cluster
 H100_SMS = 132
 
@@ -200,20 +203,49 @@ def io_rows_plan(m: int, s: int, o: int,
     step."""
     if not 1 <= m <= ROWS_MAX:
         raise ValueError(f"io_rows_plan: {m} rows, the kernel takes 1..16")
+    return _axis_plan(s, o, n_sms, 8)
+
+
+def io4_rows_plan(m: int, s: int, o: int, group: int,
+                  n_sms: int = H100_SMS) -> Tuple[int, int]:
+    """Slice length (packed byte rows) and slice count of K10's decode-row
+    kernel for x (m, s) @ int4 W (s, o) in groups of ``group`` rows, m <=
+    16.
+
+    The packed axis has s / 2 byte rows, each holding two weight rows of
+    one group (its two nibbles); a group is group / 2 byte rows.  The plan
+    is ``io_rows_plan``'s over the byte rows, with slices of whole groups,
+    so no group's partial product is cut before it is scaled; the cluster
+    adds the slices' sums in order.  Shapes and the SM count decide, never
+    data."""
+    if not 1 <= m <= ROWS_MAX:
+        raise ValueError(f"io4_rows_plan: {m} rows, the kernel takes 1..16")
+    if group < 64 or group % 64 or s % group:
+        raise ValueError(f"io4_rows_plan: contraction {s} in groups of "
+                         f"{group} (a multiple of 64 dividing it)")
+    return _axis_plan(s // 2, o, n_sms, group // 2)
+
+
+def _axis_plan(axis: int, o: int, n_sms: int,
+               unit: int) -> Tuple[int, int]:
+    """(slice, n_split) of a decode-row kernel over ``axis`` rows: slices
+    of whole ``unit``s, a power of two of them past MAX_WHOLE rows (see
+    ``io_rows_plan``)."""
     n_tiles = -(-o // ROW_TILE)
     n = 1
-    if s > MAX_WHOLE:
-        cap = min(MAX_SPLIT, -(-s // ROWS_PER_PASS), n_sms // n_tiles)
+    if axis > MAX_WHOLE:
+        cap = min(MAX_SPLIT, -(-axis // ROWS_PER_PASS), n_sms // n_tiles)
         while 2 * n <= cap:  # clusters of 2, 4 or 8 pack an SM group
             n *= 2
-    sl = -(-(-(-s // n)) // 8) * 8
-    return sl, -(-s // sl)
+    sl = -(-(-(-axis // n)) // unit) * unit
+    return sl, -(-axis // sl)
 
 
 def _launch(name: str, layout: int, x2: torch.Tensor, qt, out: torch.Tensor,
             group: int, slice_rows: int = 0, n_split: int = 0) -> None:
     """One call of csrc/qmatmul.cu's entry; slice_rows and n_split are the
-    io decode-row kernel's (``io_rows_plan``), 0 elsewhere."""
+    decode-row kernels' (``io_rows_plan``, ``io4_rows_plan``), 0
+    elsewhere."""
     M, S = x2.shape
     O = out.shape[1]
     fn = K.entry("qmatmul", "gwt_qmatmul",
@@ -271,10 +303,16 @@ def quant_matmul4(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
             or tuple(qt.s.shape) != (S // group, O) or group % 64):
         raise ValueError("quant_matmul4: q uint8 (S/2, O), s float32 (S/G, O) "
                          "with S = x.shape[-1] and G a multiple of 64")
-    out = torch.empty((x2.shape[0], O), dtype=torch.float32, device=x.device)
-    if x2.shape[0]:
-        _launch("gwt_qmatmul[int4]", 2, x2, qt, out, group)
+    M = x2.shape[0]
+    route = "tc" if M > ROWS_MAX else "rows"
+    out = torch.empty((M, O), dtype=torch.float32, device=x.device)
+    if M:
+        sl, n_split = (io4_rows_plan(M, S, O, group, K.sm_count(
+            x.device.index)) if route == "rows" else (0, 0))
+        _launch(f"gwt_qmatmul[int4 {route}]", 2, x2, qt, out, group, sl,
+                n_split)
         quant_matmul4.launches += 1
+        quant_matmul4.route_launches[route] += 1
     return out.reshape(*x.shape[:-1], O)
 
 
@@ -283,3 +321,5 @@ quant_matmul.layout_launches = collections.Counter()  # "io" / "oi"
 # by route: "io_rows" (io, M <= 16), "oi_rows" (oi, M <= 16), "tc" (M > 16)
 quant_matmul.route_launches = collections.Counter()
 quant_matmul4.launches = 0
+# by route: "rows" (M <= 16), "tc" (M > 16)
+quant_matmul4.route_launches = collections.Counter()

@@ -15,11 +15,15 @@ Times, at chip_smoke.py's shapes (bf16, random inputs from numpy seed 0):
   ``io`` projections at 5 rows, (384, 384) wo, (384, 1152) wqkv, (384,
   1536) mlp.w0 and (1536, 384) mlp.w1; the logits (5, 384) x int8 (51864,
   384) ``oi``; the cross-K projection (1500, 384) x (384, 384) ``io``;
-- K10 ``quant_matmul4``: (5, 384) x int4 (384, 1536);
-- K11 / K12 ``cross_attention_quant``: large-v3 widths at beam 8 (K11,
-  exact); K12 at tiny.en kv_group 5 (W8A8 and exact), tiny.en kv_group 1
-  (W8A8; 5 streams of one row) and large-v3 widths at kv_group 5 (W8A8
-  and exact).
+- K10 ``quant_matmul4`` in its two routes: decode rows at tiny.en, 5 rows
+  x int4 (384, 1536) mlp.w0 and (1536, 384) mlp.w1, and at large-v3
+  widths, 8 rows x (1280, 3840) wqkv and (5120, 1280) mlp.w1; the
+  tensor-core route at the cross-K/V projections, (1500, 384) x (384, 384)
+  and (1500, 1280) x (1280, 1280);
+- K11 / K12 ``cross_attention_quant``: large-v3 widths at beam 8 and at
+  kv_group 7 (K11, exact); K12 at tiny.en kv_group 5 (W8A8 and exact),
+  tiny.en kv_group 1 (W8A8; 5 streams of one row) and large-v3 widths at
+  kv_group 5 (W8A8 and exact).
 
 Each kernel wrapper is captured in a CUDA graph and replayed
 (``chip_smoke.graph_ms``: the device time without the host's time to
@@ -144,7 +148,12 @@ def main() -> int:
             ("K9 io rows tiny.en mlp.w1", "int8", "io", 5, 1536, 384),
             ("K9 oi tiny.en logits", "int8", "oi", 5, 384, 51864),
             ("K9 io tiny.en cross-K", "int8", "io", 1500, 384, 384),
-            ("K10 tiny.en mlp.w0", "int4", "io", 5, 384, 1536)):
+            ("K10 rows tiny.en mlp.w0", "int4", "io", 5, 384, 1536),
+            ("K10 rows tiny.en mlp.w1", "int4", "io", 5, 1536, 384),
+            ("K10 rows large-v3 wqkv", "int4", "io", 8, 1280, 3840),
+            ("K10 rows large-v3 mlp.w1", "int4", "io", 8, 5120, 1280),
+            ("K10 tc tiny.en cross-K", "int4", "io", 1500, 384, 384),
+            ("K10 tc large-v3 cross-K", "int4", "io", 1500, 1280, 1280)):
         x = tens(m, s)
         w = tens(s, o, dtype=torch.float32, scale=0.02)
         if kind == "int4":
@@ -169,7 +178,8 @@ def main() -> int:
             ("K12 tiny.en kv_group 1 W8A8", 384, 6, 1, 5, 4, True),
             ("K12 large-v3 kv_group 5 W8A8", 1280, 20, 5, 1, 3, True),
             ("K12 large-v3 kv_group 5 exact", 1280, 20, 5, 1, 3, False),
-            ("K11 large-v3 beam 8", 1280, 20, 8, 1, 3, False)):
+            ("K11 large-v3 beam 8", 1280, 20, 8, 1, 3, False),
+            ("K11 large-v3 kv_group 7", 1280, 20, 7, 1, 3, False)):
         k, v = tens(n_layer, g, 1536, s), tens(n_layer, g, 1536, s)
         x = quantize_cross_kv(CrossKV(k, v, 1500), h)
         q = tens(g * kg, s)

@@ -49,10 +49,13 @@ import numpy as np
 from chip_smoke import frozen_audio
 
 # The quantized kernels' device-side names, current and older ones (a
-# --root checkout may hold the older; there K12's exact mode reads as K11)
+# --root checkout may hold the older; there K12's exact mode reads as K11).
+# K11 runs on K12's kernel template (xattn_packed_kernel), so in this
+# checkout its time counts under K12.
 FAMILIES = (("K9", r"qmm_io_rows8|qmm_oi_mma|qmm_io_tc|qmm_oi_rows"
                    r"|qmm_io_rows<false>|qmm_tc<[01]>"),
-            ("K10", r"q4mm_rows|qmm_io_rows<true>|qmm_tc<2>"),
+            ("K10", r"q4mm_io_rows|q4mm_io_tc|q4mm_rows|qmm_io_rows<true>"
+                    r"|qmm_tc<2>"),
             ("K11", r"xattn_q_kernel<\d+(, false)?>"),
             ("K12", r"xattn_packed_kernel|xattn_q_kernel<\d+, true>"))
 

@@ -717,3 +717,123 @@ def test_quant_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+# --------------------------------------- K10 in two routes, K11 as a cluster --
+def _q4_check(cuda, m, s, o, seed=12, offset=0):
+    """K10 against its plain version within ``_qmm_within``, bitwise equal
+    from call to call; ``offset`` > 0 puts the packed weight at that byte
+    offset into a larger buffer (not 16-byte aligned).  Returns the route
+    the call took."""
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(seed)
+    x, w = _qmm_case(gen, cuda, m, s, o)
+    qt = Q.quantize_tensor4(w.to(cuda))
+    if offset:
+        buf = torch.zeros(qt.q.numel() + offset, dtype=torch.uint8,
+                          device=cuda)
+        buf[offset:] = qt.q.reshape(-1)
+        qt = Q.Quant4Tensor(buf[offset:].view(qt.q.shape), qt.s)
+        assert qt.q.data_ptr() % 16
+    before = dict(Q.quant_matmul4.route_launches)
+    got = Q.quant_matmul4(x, qt)
+    again = Q.quant_matmul4(x, qt)
+    torch.cuda.synchronize()
+    want = Q.quant_matmul4_plain(x, qt)
+    assert _qmm_within(got, want, x, Q.dequantize4(qt).abs())
+    assert torch.equal(got, again)
+    after = Q.quant_matmul4.route_launches
+    (route,) = [r for r in after if after[r] != before.get(r, 0)]
+    assert after[route] == before.get(route, 0) + 2
+    return route
+
+
+@pytest.mark.parametrize("m,s,o", [
+    # decode rows (M <= 16)
+    (1, 384, 1152), (5, 384, 1536), (8, 1280, 3840), (16, 384, 384),
+    (5, 1536, 384),    # two slices of 6 groups
+    (5, 5120, 200),    # eight slices, O not a multiple of 16
+    (16, 5120, 1280),  # large-v3 mlp.w1: 10 passes, unsplit
+    (5, 128, 200),     # one group
+    (12, 128, 1104),   # one group, two row chunks
+    # tensor-core tiles (M > 16)
+    (17, 384, 1152), (40, 256, 200), (1500, 384, 384), (1500, 128, 200),
+    (1500, 1280, 1280), (33, 5120, 1280),
+])
+def test_quant_matmul4_routes(cuda, m, s, o):
+    """K10's decode-row kernel (M <= 16) and tensor-core tiles (M > 16)
+    at the decode step's and the 1500-row projections' widths and at their
+    edges: one group, slices cut on group boundaries, ragged O (plain
+    loads) and M."""
+    assert _q4_check(cuda, m, s, o) == ("rows" if m <= 16 else "tc")
+
+
+@pytest.mark.parametrize("m,s,o", [(5, 384, 1152), (40, 384, 384)])
+def test_quant_matmul4_unaligned_weight(cuda, m, s, o):
+    """A packed weight one byte into a larger buffer takes the byte-load
+    paths of both routes and stays correct."""
+    _q4_check(cuda, m, s, o, offset=1)
+
+
+@pytest.mark.parametrize("s,h,kg,g,t,lo", [
+    (1280, 20, 8, 1, 1536, [1500] * 8),               # large-v3 beam 8
+    (1280, 20, 7, 1, 1536, [0, 1500, 257, 1, 256, 700, 1023]),  # lo 0
+    (1280, 20, 7, 2, 768, [700, 3, 256, 511, 600, 64, 65,
+                           500, 257, 9, 400, 1, 300, 299]),
+    (1280, 20, 8, 1, 512, [511, 0, 17, 256, 255, 100, 1, 300]),
+    (512, 32, 5, 2, 256, [100, 1, 77, 255, 256, 3, 200, 0, 64, 65]),  # D 16
+    (320, 20, 8, 1, 768, [700, 0, 1, 256, 257, 511, 512, 600]),       # D 16
+])
+def test_xattn_wide_cluster_edges(cuda, s, h, kg, g, t, lo):
+    """K11 (kv_group * n_head > 128) on the cluster template: ragged lo,
+    lo 0 (every slot masked: uniform weights over the group's blocks, as
+    in the plain version when the group decides the block count), kv_group
+    7 and 8, head dim 16 and 64; within 1e-4 of the plain version and
+    bitwise equal from call to call."""
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    q, x, lo_t = _xattn_inputs(cuda, s, h, kg, g, t, lo)
+    assert not CA.is_packed(h, kg)
+    kw = dict(n_head=h, kv_group=kg, layer=1)
+    before = CA.xattn_q_wide.launches
+    got = CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                   t_valid=lo_t, w8a8=False, **kw)
+    again = CA.cross_attention_quant(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                     t_valid=lo_t, w8a8=False, **kw)
+    torch.cuda.synchronize()
+    assert CA.xattn_q_wide.launches == before + 2
+    want = CA.cross_attention_quant_plain(q, x.k_q, x.k_s, x.v_q, x.v_s,
+                                          lo_t, w8a8=False, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+    assert torch.equal(got, again)
+
+
+def test_k10_k11_replay_in_a_cuda_graph(cuda):
+    """K10's two routes (the rows with a split) and K11 captured in one
+    CUDA graph: every replay gives the eager result bit for bit."""
+    from godot_whisper_tpu_torch.ops import cross_attention as CA
+    from godot_whisper_tpu_torch.ops import qmatmul as Q
+    gen = torch.Generator().manual_seed(13)
+    x5, w = _qmm_case(gen, cuda, 5, 1536, 384)
+    x_tc, _ = _qmm_case(gen, cuda, 1500, 1536, 384)
+    qt = Q.quantize_tensor4(w.to(cuda))
+    q, xkv, lo = _xattn_inputs(cuda, 1280, 20, 8, 1, 1536,
+                               [1500, 0, 3, 256, 700, 1100, 1499, 64])
+
+    def step():
+        return (Q.quant_matmul4(x5, qt), Q.quant_matmul4(x_tc, qt),
+                CA.cross_attention_quant(q, xkv.k_q, xkv.k_s, xkv.v_q,
+                                         xkv.v_s, n_head=20, t_valid=lo,
+                                         kv_group=8, layer=1, w8a8=False))
+    want = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))

@@ -118,10 +118,12 @@ def test_quant_matmul_leading_dims_match_jax(rng):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL_QMM, rtol=0)
 
 
-@pytest.mark.parametrize("s_in,m", [(256, 5), (384, 5), (256, 33)])
+@pytest.mark.parametrize("s_in,m", [(256, 5), (384, 5), (256, 33),
+                                    (128, 16), (128, 17)])
 def test_quant_matmul4_plain_matches_tpu_kernel(rng, s_in, m):
     """K10's plain version vs ``_q4mm_kernel`` in interpret mode: O = 200,
-    two and three groups of 128."""
+    one, two and three groups of 128; 16 and 17 rows are the two sides of
+    the card's route boundary (decode rows, tensor-core tiles)."""
     x = rng.standard_normal((m, s_in)).astype(np.float32)
     w = rng.standard_normal((s_in, 200)).astype(np.float32)
     qt = jq.quantize_tensor4(jnp.asarray(w), group=128)
@@ -174,13 +176,15 @@ def _oracle(q, k_q, k_s, v_q, v_s, n_head, t_valid, kv_group):
 XATTN_CASES = [
     # (kv_group, n_head, head_dim, T_pad, t_valid, L, layer): K12 greedy
     # (kv_group 1) and best_of / beam groups of 5 with blocks of 512 and of
-    # 256; the wide K11 route (5 x 32 heads > 128); a stacked L = 3 cache
+    # 256; the wide K11 route (5 x 32 heads > 128; large-v3's 20 heads at
+    # beam 8 and 7); a stacked L = 3 cache
     (1, 6, 64, 512, 300, 1, 0),
     (5, 6, 64, 512, 300, 1, 0),
     (5, 6, 64, 256, 200, 1, 0),
     (5, 32, 16, 256, 100, 1, 0),
     (5, 6, 64, 512, 300, 3, 1),
     (8, 20, 64, 512, 389, 1, 0),
+    (7, 20, 64, 512, 300, 1, 0),
 ]
 
 
