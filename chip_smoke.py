@@ -236,6 +236,126 @@ def log_ptxas(logs, source: str, kernel: str, dynamic: bool = True) -> None:
         log(f"  [{source}] {kernel}: not in this build's ptxas log")
 
 
+FILTER_KINDS = ("fire", "initial", "ts_last", "text_last", "tie", "twin",
+                "few_live", "two_ts")
+
+
+def filter_vocab(V: int):
+    """(eot, beg) of a vocabulary of V ids: tiny.en's at 51864, large-v3's
+    at 51866, else 150 timestamp ids after 20 special ones."""
+    if V == 51864:
+        return 50256, 50363
+    if V == 51866:
+        return 50257, 50365
+    return V - 170, V - 150
+
+
+def filter_edge_case(torch, rng, V: int, B: int, dev):
+    """Rows of every kind the filter kernels (K5, K6) meet, FILTER_KINDS in
+    turn, repeated to B rows (B 40: 8 streams of 5 rows).  "fire": the
+    timestamp mass beats the best text token while no single timestamp
+    does; "tie": three text ids (below eot at every V) tie at the top; "twin": bit-identical to
+    the tie row before it (logits and state); "few_live": every text and
+    timestamp id filtered by the row's state, 3 special ids left alive by
+    the static mask; the others are the initial and mid-sequence timestamp
+    states.  Returns logits (B, V) f32, suppress (V,) bool, state (B, 7)
+    int32 with column 6 (argmax) set."""
+    eot, beg = filter_vocab(V)
+    logits = (rng.standard_normal((B, V)) * 3.0).astype(np.float32)
+    sup = np.zeros(V, bool)
+    sup[eot + 1:beg] = True
+    sup[[eot + 3, eot + 7]] = False
+    span = 2 * (V - beg) + 2   # a seek delta past every timestamp
+    kinds = {"fire": [0, 321, 322, 9, 0, 3000], "initial": [1, -1, -1, 0, 0,
+                                                          3000],
+             "ts_last": [0, beg + 5, 77, 5, 1, 10],
+             "text_last": [0, 123, beg + 3, 7, 1, 6],
+             "tie": [0, 321, 322, 9, 0, 3000],
+             "twin": [0, 321, 322, 9, 0, 3000],
+             "few_live": [0, beg + 5, 77, 5, 1, span],
+             "two_ts": [0, beg + 10, beg + 4, 12, 1, 40]}
+    state = np.zeros((B, 7), np.int32)
+    for b in range(B):
+        kind = FILTER_KINDS[b % len(FILTER_KINDS)]
+        state[b, :6] = kinds[kind]
+        state[b, 6] = 1
+        if kind == "fire":
+            logits[b, beg:] = 9.0 + 0.1 * logits[b, beg:]
+        elif kind == "tie":
+            logits[b, [11, 300, 700]] = 25.0
+        elif kind == "twin":
+            logits[b] = logits[b - 1]
+    return (torch.from_numpy(logits).to(dev), torch.from_numpy(sup).to(dev),
+            torch.from_numpy(state).to(dev))
+
+
+def filter_edge_errors(torch, FS, rng, V: int, B: int, K=None) -> dict:
+    """K5 (``K`` None) or K6 (top-K) on the card against its plain version
+    on ``filter_edge_case``'s rows: K5 at t 0 (every row argmax) and at t
+    0.7 with the argmax flag mixed (twin and tie rows argmax), K6 at K.
+    Returns the token / id / tid mismatches, the largest error on p, plog,
+    pt and ptsum, whether twin rows came out bit-identical, whether the
+    tie came out lowest id first, whether a second call gave bitwise the
+    same outputs, and whether the edge rows did what they are for (the
+    rule fired; K6 ran out of live ids and repeated id 0)."""
+    dev = torch.device("cuda")
+    eot, beg = filter_vocab(V)
+    logits, sup, state = filter_edge_case(torch, rng, V, B, dev)
+    kinds = [FILTER_KINDS[b % len(FILTER_KINDS)] for b in range(B)]
+    mixed = state.clone()
+    mixed[:, 6] = torch.tensor(
+        [int(k in ("tie", "twin") or b % 3 == 0) for b, k in
+         enumerate(kinds)], dtype=torch.int32, device=dev)
+    base = dict(eot=eot, beg=beg, space_id=min(220, eot - 1),
+                max_initial_tid=50, suppress_blank=True, no_timestamps=False)
+    r = dict(mismatch=0, err=0.0, twins=True, ties=True, repeat=True,
+             fired=True, few=True)
+
+    def held(got, want, exact, close):
+        r["mismatch"] += sum(int((getattr(got, n) != getattr(want, n))
+                                 .sum()) for n in exact)
+        for n in close:
+            r["err"] = max(r["err"], float((getattr(got, n)
+                                            - getattr(want, n)).abs().max()))
+        again = got_fn()
+        r["repeat"] &= all(bool(torch.equal(a, b)) for a, b in
+                           zip(got, again))
+        for b, k in enumerate(kinds):
+            if k == "twin":
+                r["twins"] &= all(bool(torch.equal(t[b], t[b - 1]))
+                                  for t in got)
+
+    for st, temp, seed in (((state, 0.0, 0), (mixed, 0.7, 4321))
+                           if K is None else ()):
+        kw = dict(base, temperature=temp, seed=seed)
+        got_fn = (lambda st=st, kw=kw: FS.fused_filter_sample(
+            logits, sup, st, **kw))
+        got = got_fn()
+        torch.cuda.synchronize()
+        want = FS.fused_filter_sample_plain(logits, sup, st, **kw)
+        held(got, want, ("token", "tid"), ("p", "plog", "pt", "ptsum"))
+        for b, k in enumerate(kinds):
+            if k == "fire" and temp == 0.0:
+                r["fired"] &= int(want.token[b]) >= beg
+            if k == "tie" and temp == 0.0:
+                r["ties"] &= int(got.token[b]) == 11
+    if K is None:
+        return r
+    kw = dict(base, K=K, temperature=0.0)
+    got_fn = lambda: FS.fused_filter_topk(logits, sup, state, **kw)
+    got = got_fn()
+    torch.cuda.synchronize()
+    want = FS.fused_filter_topk_plain(logits, sup, state, **kw)
+    held(got, want, ("ids", "tid"), ("plog", "p", "pt", "ptsum"))
+    for b, k in enumerate(kinds):
+        if k == "tie":
+            r["ties"] &= got.ids[b, :3].tolist() == [11, 300, 700][:K]
+        if k == "few_live" and K > 3:
+            r["few"] &= (want.ids[b, 3:] == 0).all().item() and bool(
+                (want.plog[b, 3:] == -1e30).all())
+    return r
+
+
 def frozen_audio(seconds: float) -> np.ndarray:
     """The deterministic clip of tests/test_golden_decode.py."""
     t = np.arange(int(seconds * 16000)) / 16000.0
@@ -437,6 +557,19 @@ def check_kernels(torch, gt, rng, ptx_logs):
                                      logits, sup, state, **kw)),
                 **timed(torch, lambda: FS.fused_filter_sample(
                     logits, sup, state, **kw)))
+    # the edge rows (filter_edge_case) at every vocabulary width and batch
+    # the path gives K5, a small V, and B 40 = 8 streams of 5 rows
+    for V, B in ((51864, 1), (51864, 5), (51864, 40), (51866, 8), (1000, 5)):
+        r = filter_edge_errors(torch, FS, rng, V, B)
+        log(f"K5 filter_sample edges (B {B}, V {V}): token/tid mismatches "
+            f"{r['mismatch']}, max_abs_err {r['err']:.3e}, twins equal "
+            f"{r['twins']}, tie lowest id {r['ties']}, repeat bitwise "
+            f"{r['repeat']}, rule fired {r['fired']} (tol: 0 mismatches; "
+            "1e-5 on p/plog/pt/ptsum)")
+        if (r["mismatch"] or not r["err"] < 1e-5 or not r["twins"]
+                or not r["ties"] or not r["repeat"] or not r["fired"]):
+            fail("K5 filter+sample disagrees with its plain version at an "
+                 "edge case")
     return recs
 
 
@@ -502,6 +635,21 @@ def check_beam_kernels(torch, rng):
                     logits, sup, state, **kw)),
                 **timed(torch, lambda: FS.fused_filter_topk(
                     logits, sup, state, **kw)))
+    # the edge rows (filter_edge_case): the beam path's K at each width, a
+    # small V, B 40 = 8 streams of 5 beams; the few-live row runs out of
+    # live ids
+    for V, B, K in ((51864, 5, 5), (51864, 40, 5), (51866, 8, 8),
+                    (51866, 1, 8), (1000, 8, 6)):
+        r = filter_edge_errors(torch, FS, rng, V, B, K)
+        log(f"K6 filter_topk edges (B {B}, V {V}, K {K}): id/tid mismatches "
+            f"{r['mismatch']}, max_abs_err {r['err']:.3e}, twins equal "
+            f"{r['twins']}, ties lowest id first {r['ties']}, repeat "
+            f"bitwise {r['repeat']}, past the live ids id 0 {r['few']} "
+            "(tol: 0 mismatches; 1e-5 on plog/p/pt/ptsum)")
+        if (r["mismatch"] or not r["err"] < 1e-5 or not r["twins"]
+                or not r["ties"] or not r["repeat"] or not r["few"]):
+            fail("K6 filter+top-K disagrees with its plain version at an "
+                 "edge case")
 
     # ---- K8 bounded reorder at phase 6's cache (large-v3 widths, 3 text
     # layers, beam 8, capacity 512, 332 live slots) and at tiny.en's; the

@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion and
-// warp/block reductions.  Every kernel source includes this file and
+// warp reductions.  Every kernel source includes this file and
 // exports plain C entry points that return cudaGetLastError().
 #pragma once
 
@@ -49,51 +49,4 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float v2,
     v = v2;
     i = i2;
   }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-    int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-    argmax_merge(v, i, v2, i2);
-  }
-}
-
-// Block-wide reductions: every thread of the block returns the result.
-// `red` is shared scratch of at least 32 entries; the leading barrier lets
-// consecutive calls reuse it.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_sum(lane < nw ? red[lane] : 0.f);
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_max(lane < nw ? red[lane] : -INFINITY);
-}
-
-__device__ __forceinline__ void block_argmax(float& v, int& i, float* redv,
-                                             int* redi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  warp_argmax(v, i);
-  __syncthreads();
-  if (lane == 0) {
-    redv[warp] = v;
-    redi[warp] = i;
-  }
-  __syncthreads();
-  v = lane < nw ? redv[lane] : -INFINITY;
-  i = lane < nw ? redi[lane] : 0x7fffffff;
-  warp_argmax(v, i);
 }

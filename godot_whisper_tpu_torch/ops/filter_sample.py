@@ -16,11 +16,15 @@ Per-row decode state rides in one ``(B, 7)`` int32 tensor, as in the JAX
 kernel: ``[is_initial, last, penult, n_tokens, has_ts, seek_delta,
 argmax_flag]``.  The Gumbel noise is a counter hash of (seed, row, id) that
 both versions compute, so they agree at t > 0 as well.
+
+On the card each row runs on one thread-block cluster whose CTAs take
+slices of the vocabulary (``filter_plan``), each thread holding its ids in
+registers.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -28,6 +32,26 @@ from . import kernels
 
 _NEG = -1e30
 _MASK32 = 0xFFFFFFFF
+FILTER_THREADS = 256      # threads of one CTA
+MAX_FILTER_CLUSTER = 16   # CTAs of a row's cluster (not portable past 8)
+MAX_VOCAB = 56000         # ids a row may have: 16 x 256 x 14 slots
+MAX_TOPK = 32             # K6's candidates per row
+
+
+def filter_plan(B: int, V: int) -> Tuple[int, int]:
+    """K5 / K6's cluster size C and slice width W for rows of V ids: grid
+    (C, B), CTA r takes ids [r W, min(r W + W, V)), thread t of it ids
+    r W + i 256 + t.  W is a whole number of 256-id steps (a warp's 32 ids
+    of one step are consecutive) and C the fewest CTAs that cover V with at
+    most 16 CTAs; at V 51864 or 51866: (16, 3328), 13 ids a thread.  V
+    alone decides, never the row's state, so every call and graph replay
+    has one grid.  Raises past V 56000 (14 ids a thread)."""
+    if B < 1 or not 1 <= V <= MAX_VOCAB:
+        raise ValueError(f"filter_plan: {B} rows of {V} ids "
+                         f"(1 <= V <= {MAX_VOCAB})")
+    step = MAX_FILTER_CLUSTER * FILTER_THREADS
+    width = -(-V // step) * FILTER_THREADS
+    return -(-V // width), width
 
 
 class SampleOut(NamedTuple):
@@ -185,9 +209,10 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
     if (logits.dtype != torch.float32
             or suppress.dtype not in (torch.bool, torch.uint8)
             or tuple(suppress.shape) != (V,) or state.dtype != torch.int32
-            or tuple(state.shape) != (B, 7) or V > 56000):
-        raise ValueError("fused_filter_sample: logits (B, V<=56000) f32, "
+            or tuple(state.shape) != (B, 7)):
+        raise ValueError("fused_filter_sample: logits (B, V) f32, "
                          "suppress (V,) bool, state (B, 7) int32")
+    C, width = filter_plan(B, V)
     dev = logits.device
     tok = torch.empty(B, dtype=torch.int32, device=dev)
     tid = torch.empty(B, dtype=torch.int32, device=dev)
@@ -195,13 +220,13 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
                           for _ in range(4))
     k = kernels
     fn = k.entry("filter_sample", "gwt_filter_sample",
-                 (k.P,) * 9 + (k.I,) * 8 + (k.F, k.U, k.P))
+                 (k.P,) * 9 + (k.I,) * 10 + (k.F, k.U, k.P))
     k.launch(fn, "gwt_filter_sample", logits.data_ptr(), suppress.data_ptr(),
              state.data_ptr(), tok.data_ptr(), p.data_ptr(), plog.data_ptr(),
-             pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, eot, beg,
-             space_id, max_initial_tid, int(suppress_blank),
-             int(no_timestamps), float(temperature), seed & _MASK32,
-             k.stream_ptr(dev))
+             pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, C,
+             width // FILTER_THREADS, eot, beg, space_id, max_initial_tid,
+             int(suppress_blank), int(no_timestamps), float(temperature),
+             seed & _MASK32, k.stream_ptr(dev))
     fused_filter_sample.launches += 1
     return SampleOut(token=tok, p=p, plog=plog, pt=pt, ptsum=ptsum, tid=tid)
 
@@ -240,8 +265,9 @@ def fused_filter_topk(logits: torch.Tensor, suppress: torch.Tensor,
                       suppress_blank: bool, no_timestamps: bool) -> TopKOut:
     """Kernel wrapper.  logits (B, V) f32 raw; suppress (V,) bool; state
     (B, 7) int32 as for ``fused_filter_sample`` (column 6 is not read).
-    CUDA tensors launch csrc/filter_sample.cu's top-K kernel, CPU tensors
-    take the plain version."""
+    CUDA tensors launch csrc/filter_sample.cu's top-K kernel (K <= 32),
+    CPU tensors take the plain version.  Past the row's last id above
+    -1e30 every slot takes id 0, as K argmax-and-mask passes do."""
     kw = dict(K=K, temperature=temperature, eot=eot, beg=beg,
               space_id=space_id, max_initial_tid=max_initial_tid,
               suppress_blank=suppress_blank, no_timestamps=no_timestamps)
@@ -252,10 +278,12 @@ def fused_filter_topk(logits: torch.Tensor, suppress: torch.Tensor,
     if (logits.dtype != torch.float32
             or suppress.dtype not in (torch.bool, torch.uint8)
             or tuple(suppress.shape) != (V,) or state.dtype != torch.int32
-            or tuple(state.shape) != (B, 7) or V > 56000
-            or not 1 <= K <= V):
-        raise ValueError("fused_filter_topk: logits (B, V<=56000) f32, "
-                         "suppress (V,) bool, state (B, 7) int32, 1 <= K")
+            or tuple(state.shape) != (B, 7)
+            or not 1 <= K <= min(V, MAX_TOPK)):
+        raise ValueError("fused_filter_topk: logits (B, V) f32, suppress "
+                         "(V,) bool, state (B, 7) int32, "
+                         f"1 <= K <= {MAX_TOPK}")
+    C, width = filter_plan(B, V)
     dev = logits.device
     plog = torch.empty((B, K), dtype=torch.float32, device=dev)
     ids = torch.empty((B, K), dtype=torch.int32, device=dev)
@@ -265,12 +293,13 @@ def fused_filter_topk(logits: torch.Tensor, suppress: torch.Tensor,
     tid = torch.empty(B, dtype=torch.int32, device=dev)
     k = kernels
     fn = k.entry("filter_sample", "gwt_filter_topk",
-                 (k.P,) * 9 + (k.I,) * 9 + (k.F, k.P))
+                 (k.P,) * 9 + (k.I,) * 11 + (k.F, k.P))
     k.launch(fn, "gwt_filter_topk", logits.data_ptr(), suppress.data_ptr(),
              state.data_ptr(), plog.data_ptr(), ids.data_ptr(), p.data_ptr(),
-             pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, K, eot,
-             beg, space_id, max_initial_tid, int(suppress_blank),
-             int(no_timestamps), float(temperature), k.stream_ptr(dev))
+             pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, C,
+             width // FILTER_THREADS, K, eot, beg, space_id, max_initial_tid,
+             int(suppress_blank), int(no_timestamps), float(temperature),
+             k.stream_ptr(dev))
     fused_filter_topk.launches += 1
     return TopKOut(plog=plog, ids=ids, p=p, pt=pt, ptsum=ptsum, tid=tid)
 

@@ -23,7 +23,11 @@ Times, at chip_smoke.py's shapes (bf16, random inputs from numpy seed 0):
 - K11 / K12 ``cross_attention_quant``: large-v3 widths at beam 8 and at
   kv_group 7 (K11, exact); K12 at tiny.en kv_group 5 (W8A8 and exact),
   tiny.en kv_group 1 (W8A8; 5 streams of one row) and large-v3 widths at
-  kv_group 5 (W8A8 and exact).
+  kv_group 5 (W8A8 and exact);
+- K5 ``fused_filter_sample`` (argmax, f32 raw logits, chip_smoke.py's
+  ``filter_edge_case`` rows) at (5, 51864), large-v3's (8, 51866) and (40,
+  51864), 8 streams of 5 rows; K6 ``fused_filter_topk`` at (5, 51864) K 5
+  and (8, 51866) K 8.  These have no library call.
 
 Each kernel wrapper is captured in a CUDA graph and replayed
 (``chip_smoke.graph_ms``: the device time without the host's time to
@@ -90,11 +94,12 @@ def main() -> int:
         return torch.from_numpy((rng.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev, dtype)
 
-    def record(name, fn, lib):
+    def record(name, fn, lib=None):
         fn()
         torch.cuda.synchronize()
         out[name] = {"device_ms": cs.graph_ms(torch, fn),
-                     "library_device_ms": cs.graph_ms(torch, lib)}
+                     "library_device_ms": (None if lib is None
+                                           else cs.graph_ms(torch, lib))}
 
     # K3 / K4
     for name, S, H, B, kvg, C, L, lo_v, split, hi, layer in (
@@ -203,14 +208,33 @@ def main() -> int:
                lambda qd=qd, kd=kd, vd=vd, mask=mask: sdpa(
                    qd, kd, vd, attn_mask=mask))
 
+    # K5 / K6
+    from godot_whisper_tpu_torch.ops import filter_sample as FS
+    for name, V, B, K in (("K5 (5, 51864)", 51864, 5, 0),
+                          ("K5 large-v3 (8, 51866)", 51866, 8, 0),
+                          ("K5 (40, 51864)", 51864, 40, 0),
+                          ("K6 (5, 51864) K 5", 51864, 5, 5),
+                          ("K6 large-v3 (8, 51866) K 8", 51866, 8, 8)):
+        logits, sup, state = cs.filter_edge_case(torch, rng, V, B, dev)
+        eot, beg = cs.filter_vocab(V)
+        kw = dict(temperature=0.0, eot=eot, beg=beg, space_id=220,
+                  max_initial_tid=50, suppress_blank=True,
+                  no_timestamps=False)
+        record(name, (lambda lg=logits, su=sup, st=state, kw=kw:
+                      FS.fused_filter_sample(lg, su, st, seed=0, **kw))
+               if not K else
+               (lambda lg=logits, su=sup, st=state, kw=kw, K=K:
+                FS.fused_filter_topk(lg, su, st, K=K, **kw)))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
     for name, r in out.items():
-        print(f"  {name}: kernel {r['device_ms']:.4f} ms, library "
-              f"{r['library_device_ms']:.4f} ms, factor "
-              f"{r['device_ms'] / r['library_device_ms']:.2f}")
+        lib = r["library_device_ms"]
+        print(f"  {name}: kernel {r['device_ms']:.4f} ms"
+              + ("" if lib is None else f", library {lib:.4f} ms, factor "
+                 f"{r['device_ms'] / lib:.2f}"))
     print(json.dumps({"tag": args.tag, "card": smi,
                       "package": os.path.dirname(
                           godot_whisper_tpu_torch.__file__),

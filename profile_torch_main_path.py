@@ -18,7 +18,8 @@ TranscribeParams(), audio)`` on the deterministic test clip (with
    time of all kernels and copies, device time and calls per kernel name,
    kernel launches per decode step, and the quantized kernels' launches
    per decode step (K9 and K10 count the per-window projections too), and
-   the device time of the quantized kernels K9-K12 by kernel name.
+   the device time of K5, K6 and the quantized kernels K9-K12 by kernel
+   name.
    The profiler slows the host, not the
    kernels, so the device busy share is that device time over the median
    wall of the unprofiled runs (the rest is the host driving the loop);
@@ -48,11 +49,14 @@ import numpy as np
 
 from chip_smoke import frozen_audio
 
-# The quantized kernels' device-side names, current and older ones (a
-# --root checkout may hold the older; there K12's exact mode reads as K11).
-# K11 runs on K12's kernel template (xattn_packed_kernel), so in this
-# checkout its time counts under K12.
-FAMILIES = (("K9", r"qmm_io_rows8|qmm_oi_mma|qmm_io_tc|qmm_oi_rows"
+# Kernel families by device-side name, current and older ones (a --root
+# checkout may hold the older; there K12's exact mode reads as K11).  K11
+# runs on K12's kernel template (xattn_packed_kernel), so in this checkout
+# its time counts under K12.  K5 and K6 kept their kernel names through
+# their redesign (one CTA a row before, a cluster a row since).
+FAMILIES = (("K5", r"filter_sample_kernel"),
+            ("K6", r"filter_topk_kernel"),
+            ("K9", r"qmm_io_rows8|qmm_oi_mma|qmm_io_tc|qmm_oi_rows"
                    r"|qmm_io_rows<false>|qmm_tc<[01]>"),
             ("K10", r"q4mm_io_rows|q4mm_io_tc|q4mm_rows|qmm_io_rows<true>"
                     r"|qmm_tc<2>"),
@@ -204,7 +208,7 @@ def main() -> int:
     print("quantized kernel launches per decode step: "
           + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()))
     n_dec = max(ctx.timings.n_decode, 1)
-    print("quantized kernels' device time (us total, us per decode step, "
+    print("kernel families' device time (us total, us per decode step, "
           "share of device time): "
           + ", ".join(f"{k} {us:.1f} {us / n_dec:.2f} "
                       f"{us / max(dev_total_us, 1e-9):.3f}"
@@ -221,7 +225,7 @@ def main() -> int:
         "quantize": args.quantize, "cross_kv_int8": args.cross_kv_int8,
         "quant_launches_per_step": per_step,
         "package": os.path.dirname(gt.__file__),
-        "quant_device_us": family_us,
+        "family_device_us": family_us,
         "audio_s": args.seconds,
         "wall_s": walls, "steps": steps,
         "audio_s_per_s": args.seconds / wall,

@@ -121,6 +121,48 @@ def test_filter_topk_ties_take_the_lowest_index(monkeypatch):
         assert np.array_equal(a[2], a[3])
 
 
+def test_filter_topk_fewer_live_than_k_matches_tpu_kernel(monkeypatch):
+    """Three live ids at K 6 (the static mask takes every other id,
+    no_timestamps): K argmax-and-mask passes run out of live ids and take
+    id 0, the lowest id at -1e30, for the last three slots.  The plain
+    version against ``_topk_kernel`` (interpret mode) at B 2: ids exact,
+    -1e30 and p 0 past the third."""
+    monkeypatch.setenv("GWT_PALLAS_INTERPRET", "1")
+    cfg = jax_get_config("tiny.en")
+    V = cfg.n_vocab
+    rng = np.random.default_rng(8)
+    logits = _rand(rng, 2, V, scale=3.0)
+    logits[:, 40], logits[:, 7000], logits[:, 900] = 9.0, 8.0, 7.0
+    sup = np.ones(V, bool)
+    sup[[40, 900, 7000]] = False
+    state = dict(is_initial=np.asarray([False, True]),
+                 last_token=np.asarray([321, -1], np.int32),
+                 penult_token=np.asarray([322, -1], np.int32),
+                 n_tokens=np.asarray([9, 0], np.int32),
+                 has_ts=np.asarray([False, False]),
+                 seek_delta=np.asarray([3000, 3000], np.int32))
+    kw = dict(temperature=0.0, eot=cfg.token_eot, beg=cfg.token_beg,
+              space_id=220, max_initial_tid=50, suppress_blank=True,
+              no_timestamps=True)
+    want = jax_topk(jnp.asarray(logits), jnp.asarray(sup), K=6,
+                    **{k: jnp.asarray(v) for k, v in state.items()}, **kw)
+    got = FS.fused_filter_topk(torch.from_numpy(logits),
+                               torch.from_numpy(sup), _port_state(state),
+                               K=6, **kw)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    assert got.ids.tolist() == [[40, 7000, 900, 0, 0, 0]] * 2
+    np.testing.assert_array_equal(got.tid.numpy(), np.asarray(want.tid))
+    for name in ("plog", "p"):
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        np.testing.assert_array_equal(a[:, 3:], b[:, 3:])
+    assert (got.plog.numpy()[:, 3:] == np.float32(-1e30)).all()
+    assert (got.p.numpy()[:, 3:] == 0).all()
+    for name in ("plog", "p", "pt", "ptsum"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=1e-5, rtol=0)
+
+
 # ------------------------------------------------------------------ K7 ----
 def _split_inputs(rng, l=2, g=2, kgrp=5, cp=256, nl=512, s=384):
     b = g * kgrp

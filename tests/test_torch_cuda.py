@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import godot_whisper_tpu_torch as gt
-from chip_smoke import blocked_bf16_limit
+from chip_smoke import blocked_bf16_limit, filter_edge_errors
 from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
                                                pad_audio)
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -219,6 +219,64 @@ def test_filter_topk_kernel_matches_plain(cuda, name):
     assert got.ids[3, :3].tolist() == [11, 700, 9000]
     for t in got:
         assert torch.equal(t[3], t[8])
+
+
+@pytest.mark.parametrize("V,B", [(51864, 1), (51864, 5), (51864, 40),
+                                 (51866, 5), (51866, 8), (1000, 5),
+                                 (1000, 8)])
+def test_filter_sample_kernel_edge_cases(cuda, V, B):
+    """K5's cluster kernel at the edge rows of ``filter_edge_case`` (the
+    rule firing, a tie, twin rows, few live ids, timestamp states), t 0
+    and t 0.7 with the argmax flag mixed, at tiny.en's V, large-v3's (odd
+    rows 8-byte aligned), a small V, B 1 to 40 (8 streams of 5 rows):
+    tokens and tids exact, 1e-5 on p / plog / pt / ptsum, a second call
+    bitwise equal."""
+    r = filter_edge_errors(torch, FS, np.random.default_rng(V + B), V, B)
+    assert r["mismatch"] == 0 and r["err"] < 1e-5, r
+    assert r["twins"] and r["ties"] and r["repeat"] and r["fired"], r
+
+
+@pytest.mark.parametrize("V,B,K", [(51864, 5, 5), (51864, 40, 5),
+                                   (51866, 8, 8), (51866, 1, 8),
+                                   (1000, 8, 6), (1000, 5, 1)])
+def test_filter_topk_kernel_edge_cases(cuda, V, B, K):
+    """K6's cluster kernel at the same edge rows: ids and tids exact, 1e-5
+    on plog / p / pt / ptsum, ties lowest id first, twin rows and two
+    calls bitwise equal, and past the few-live row's 3 live ids every slot
+    id 0 at -1e30."""
+    r = filter_edge_errors(torch, FS, np.random.default_rng(V + B + K), V,
+                           B, K)
+    assert r["mismatch"] == 0 and r["err"] < 1e-5, r
+    assert r["twins"] and r["ties"] and r["repeat"] and r["few"], r
+
+
+def test_filter_topk_kernel_fewer_live_than_k(cuda):
+    """Three live ids at K 6 (every other id in the static mask,
+    no_timestamps): the three by value, then id 0 three times at -1e30
+    and p 0, as the plain version's argmax-and-mask passes give."""
+    cfg = get_config("tiny.en")
+    V = cfg.n_vocab
+    g = torch.Generator().manual_seed(5)
+    logits = (torch.randn(2, V, generator=g) * 3).to(cuda)
+    logits[:, 40], logits[:, 7000], logits[:, 900] = 9.0, 8.0, 7.0
+    sup = torch.ones(V, dtype=torch.bool, device=cuda)
+    sup[[40, 900, 7000]] = False
+    state = torch.tensor([[0, 321, 322, 9, 0, 3000, 0],
+                          [1, -1, -1, 0, 0, 3000, 0]], dtype=torch.int32,
+                         device=cuda)
+    kw = dict(K=6, temperature=0.0, eot=cfg.token_eot, beg=cfg.token_beg,
+              space_id=220, max_initial_tid=50, suppress_blank=True,
+              no_timestamps=True)
+    got = FS.fused_filter_topk(logits, sup, state, **kw)
+    torch.cuda.synchronize()
+    want = FS.fused_filter_topk_plain(logits, sup, state, **kw)
+    assert got.ids.tolist() == [[40, 7000, 900, 0, 0, 0]] * 2
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.tid, want.tid)
+    assert bool((got.plog[:, 3:] == -1e30).all())
+    assert bool((got.p[:, 3:] == 0).all())
+    for name_ in ("plog", "p", "pt", "ptsum"):
+        assert float((getattr(got, name_) - getattr(want, name_)).abs()
+                     .max()) < 1e-5
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -329,6 +329,76 @@ def test_filter_sample_matches_tpu_kernel(monkeypatch):
                                    atol=1e-5, rtol=1e-5)
 
 
+def test_filter_sample_rule_firing_row_matches_tpu_kernel(monkeypatch):
+    """A row where the timestamp mass beats the best text token though no
+    single timestamp does (the rule decides the token), beside a row where
+    it does not fire: the plain version against ``_kernel`` (interpret
+    mode), argmax, token and tid exact, 1e-5 on the values."""
+    monkeypatch.setenv("GWT_PALLAS_INTERPRET", "1")
+    cfg = jax_get_config("tiny.en")
+    V, beg = cfg.n_vocab, cfg.token_beg
+    rng = np.random.default_rng(21)
+    logits = _rand(rng, 2, V, scale=3.0)
+    logits[0, beg:] = 9.0 + 0.1 * logits[0, beg:]
+    assert logits[0, :beg].max() > logits[0, beg:].max()
+    sup = np.zeros(V, bool)
+    sup[[cfg.token_not, cfg.token_sot, cfg.token_prev]] = True
+    state = dict(is_initial=np.asarray([False, False]),
+                 last_token=np.asarray([321, 321], np.int32),
+                 penult_token=np.asarray([322, 322], np.int32),
+                 n_tokens=np.asarray([9, 9], np.int32),
+                 has_ts=np.asarray([False, False]),
+                 seek_delta=np.asarray([3000, 3000], np.int32))
+    want = jax_fused(
+        jnp.asarray(logits), jnp.asarray(sup), temperature=jnp.float32(0.0),
+        seeds=jnp.zeros(4, jnp.int32), eot=cfg.token_eot, beg=beg,
+        space_id=220, max_initial_tid=50, suppress_blank=True,
+        no_timestamps=False, argmax_sample=True,
+        **{k: jnp.asarray(v) for k, v in state.items()})
+    got = FS.fused_filter_sample(
+        torch.from_numpy(logits), torch.from_numpy(sup),
+        _port_state(state, argmax=True), temperature=0.0, seed=0,
+        eot=cfg.token_eot, beg=beg, space_id=220, max_initial_tid=50,
+        suppress_blank=True, no_timestamps=False)
+    assert int(got.token[0]) >= beg > int(got.token[1])
+    for name in ("token", "tid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
+    for name in ("p", "plog", "pt", "ptsum"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("V", [51864, 51865, 51866, 1024, 1000])
+def test_filter_plan_slices_cover_the_vocabulary(V):
+    """K5 / K6's plan: C <= 16 slices of W ids (whole 32-id words, at most
+    14 ids a thread) cover [0, V) exactly, the last one not empty; the
+    grid does not depend on B."""
+    C, W = FS.filter_plan(5, V)
+    assert (C, W) == FS.filter_plan(40, V)
+    assert 1 <= C <= FS.MAX_FILTER_CLUSTER
+    assert W % 32 == 0 and W % FS.FILTER_THREADS == 0
+    assert W // FS.FILTER_THREADS <= 14
+    ends = [min(r * W + W, V) for r in range(C)]
+    starts = [r * W for r in range(C)]
+    assert starts[0] == 0 and ends[-1] == V and starts[-1] < V
+    assert all(a % 32 == 0 for a in starts)
+    assert all(e == s2 for e, s2 in zip(ends[:-1], starts[1:]))
+    if V in (51864, 51866):
+        assert (C, W) == (16, 3328)
+
+
+def test_filter_plan_rejects_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError):
+        FS.filter_plan(5, 56001)
+    with pytest.raises(ValueError):
+        FS.filter_plan(5, 0)
+    with pytest.raises(ValueError):
+        FS.filter_plan(0, 51864)
+    assert FS.filter_plan(1, 56000)[0] == 16
+
+
 def test_filter_sample_gumbel_frequencies():
     """At t > 0 the counter-hash Gumbel-max draws follow the softmax of the
     filtered log-probs (the JAX package's ``process_logits``): 1200 draws,
