@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.config import CHUNK_SECONDS, HOP_LENGTH, N_FFT, SAMPLE_RATE
-from ..ops.mel_kernel import dft_basis, log_mel_raw
+from ..ops.mel_kernel import dft_basis, log_mel_raw, mel_tables
 
 N_FFT_BINS = N_FFT // 2 + 1  # 201
 _PAD = N_FFT // 2            # 200
@@ -102,14 +102,16 @@ def normalize_log_mel(raw: torch.Tensor) -> torch.Tensor:
 
 
 class MelFrontend:
-    """Mel filterbank + DFT basis resident on one device."""
+    """Mel filterbank + DFT basis resident on one device, with kernel K1's
+    tables derived from them once."""
 
     def __init__(self, filters: np.ndarray, device):
         self.filters = np.asarray(filters, dtype=np.float32)
         self.n_mels = self.filters.shape[0]
         self.torch_device = torch.device(device)
-        self._filters = torch.from_numpy(self.filters).to(self.torch_device)
-        self._basis = torch.from_numpy(dft_basis()).to(self.torch_device)
+        self._tables = mel_tables(
+            torch.from_numpy(dft_basis()).to(self.torch_device),
+            torch.from_numpy(self.filters).to(self.torch_device))
 
     def device(self, samples: np.ndarray) -> Tuple[torch.Tensor, int]:
         """Device-resident mel: ((n_mels, bucketed_frames) f32, n_len)."""
@@ -120,6 +122,6 @@ class MelFrontend:
         padded = np.pad(padded, (0, bucket - len(padded)))
         audio = torch.from_numpy(padded.astype(np.float16)).to(
             self.torch_device)
-        raw = log_mel_raw(audio[None], self._basis, self._filters)[0]
+        raw = log_mel_raw(audio[None], self._tables)[0]
         mel = normalize_log_mel(raw)
         return mel, min(n_len, mel.shape[1])

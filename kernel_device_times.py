@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""CUDA-graph device times of the decode path's kernels and of their
-library yardsticks, on one NVIDIA GPU.
+"""CUDA-graph device times of the decode path's kernels, of the log-mel
+kernel and of their library yardsticks, on one NVIDIA GPU.
 
     python3 kernel_device_times.py [--root DIR] [--tag NAME]
 
@@ -28,6 +28,16 @@ Times, at chip_smoke.py's shapes (bf16, random inputs from numpy seed 0):
   ``filter_edge_case`` rows) at (5, 51864), large-v3's (8, 51866) and (40,
   51864), 8 streams of 5 rows; K6 ``fused_filter_topk`` at (5, 51864) K 5
   and (8, 51866) K 8.  These have no library call.
+- K1 ``log_mel_raw`` (f16 audio from numpy seed 0): the main path's 90 s
+  bucket (1, 1440000) at 80 mels and at large-v3's 128, phase 10's (1,
+  2400000) at 80, and 8 clips of 30 s (8, 1440000) at 80.  No single
+  PyTorch call computes it; beside it, as a yardstick, the chain
+  ``torch.stft`` (cuFFT, ``center=False``, periodic Hann) -> power ->
+  ``torch.matmul`` with the filterbank -> ``log10`` (``chain_device_ms``).
+  A parent tree whose ``log_mel_raw`` takes the (400, 402) basis and the
+  filterbank is called that way.  And the main path's mel stage,
+  ``MelFrontend.device`` on chip_smoke.py's 34 s clip (pad, upload, K1,
+  normalize; host clock around synchronizes, median of 30).
 
 Each kernel wrapper is captured in a CUDA graph and replayed
 (``chip_smoke.graph_ms``: the device time without the host's time to
@@ -48,6 +58,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -94,12 +105,14 @@ def main() -> int:
         return torch.from_numpy((rng.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev, dtype)
 
-    def record(name, fn, lib=None):
+    def record(name, fn, lib=None, chain=None):
         fn()
         torch.cuda.synchronize()
         out[name] = {"device_ms": cs.graph_ms(torch, fn),
                      "library_device_ms": (None if lib is None
                                            else cs.graph_ms(torch, lib))}
+        if chain is not None:
+            out[name]["chain_device_ms"] = cs.graph_ms(torch, chain)
 
     # K3 / K4
     for name, S, H, B, kvg, C, L, lo_v, split, hi, layer in (
@@ -226,19 +239,60 @@ def main() -> int:
                (lambda lg=logits, su=sup, st=state, kw=kw, K=K:
                 FS.fused_filter_topk(lg, su, st, K=K, **kw)))
 
+    # K1
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.ops import mel_kernel as M
+    basis = torch.from_numpy(M.dft_basis()).to(dev)
+    win = torch.hann_window(400, periodic=True, device=dev)
+    for name, B, L, n_mels in (("K1 (1, 1440000) 80 mels", 1, 1440000, 80),
+                               ("K1 (1, 1440000) 128 mels", 1, 1440000,
+                                128),
+                               ("K1 (1, 2400000) 80 mels", 1, 2400000, 80),
+                               ("K1 (8, 1440000) 80 mels", 8, 1440000, 80)):
+        a16 = tens(B, L, dtype=torch.float16, scale=0.1)
+        filt = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
+        if hasattr(M, "mel_tables"):
+            tables = M.mel_tables(basis, filt)
+            fn = (lambda a16=a16, tables=tables: M.log_mel_raw(a16, tables))
+        else:
+            fn = (lambda a16=a16, filt=filt: M.log_mel_raw(a16, basis, filt))
+        record(name, fn, chain=lambda a16=a16, filt=filt: torch.log10(
+            torch.clamp(filt @ torch.stft(
+                a16.float(), 400, 160, window=win, center=False,
+                return_complex=True).abs().square(), min=1e-10)))
+
+    # the main path's synchronized mel stage (MelFrontend.device: pad,
+    # upload, K1, normalize) on chip_smoke.py's 34 s clip, host clock
+    from godot_whisper_tpu_torch.audio.mel import MelFrontend
+    fe = MelFrontend(mel_filterbank(80), device=dev)
+    clip = cs.frozen_audio(34.0)
+    stage = []
+    for _ in range(33):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fe.device(clip)
+        torch.cuda.synchronize()
+        stage.append((time.perf_counter() - t0) * 1e3)
+    stage_ms = float(np.median(stage[3:]))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
+    print(f"  mel stage (34 s clip, synchronized, median of 30): "
+          f"{stage_ms:.4f} ms")
     for name, r in out.items():
         lib = r["library_device_ms"]
         print(f"  {name}: kernel {r['device_ms']:.4f} ms"
               + ("" if lib is None else f", library {lib:.4f} ms, factor "
-                 f"{r['device_ms'] / lib:.2f}"))
+                 f"{r['device_ms'] / lib:.2f}")
+              + (f", chain {r['chain_device_ms']:.4f} ms"
+                 if "chain_device_ms" in r else ""))
     print(json.dumps({"tag": args.tag, "card": smi,
                       "package": os.path.dirname(
                           godot_whisper_tpu_torch.__file__),
-                      "device_ms": out}), flush=True)
+                      "device_ms": out, "mel_stage_ms": stage_ms}),
+          flush=True)
     return 0
 
 

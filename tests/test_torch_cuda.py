@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import godot_whisper_tpu_torch as gt
-from chip_smoke import blocked_bf16_limit, filter_edge_errors
+from chip_smoke import (blocked_bf16_limit, filter_edge_errors, mel_f64,
+                        mel_limit, mel_tf32_one_pass)
 from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
                                                pad_audio)
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -39,10 +40,32 @@ def cuda():
     return torch.device("cuda")
 
 
+def _mel_errors(a16, filt, n_real):
+    """K1 on the card against the f64 result over each clip's real frames:
+    (kernel error, limit, one-pass TF32 control error, error against the
+    plain f32 version)."""
+    basis = torch.from_numpy(M.dft_basis()).to(a16.device)
+    tables = M.mel_tables(basis, filt)
+    before = M.log_mel_raw.launches
+    got = M.log_mel_raw(a16, tables)
+    torch.cuda.synchronize()
+    assert M.log_mel_raw.launches == before + 1
+    want = M.log_mel_raw_plain(a16, basis, filt)
+    ref = mel_f64(torch, a16, basis, filt)
+    coarse = mel_tf32_one_pass(torch, a16, basis, filt)
+
+    def real(d):
+        return max(float(d[b, :, :n].abs().max())
+                   for b, n in enumerate(n_real))
+    lim = mel_limit(real(want - ref))
+    return real(got - ref), lim, real(coarse - ref), real(got - want)
+
+
 @pytest.mark.parametrize("n_mels", [80, 128])
 def test_mel_kernel_matches_plain(cuda, n_mels):
-    """Within 1e-4 (log10) of the plain f32 version over the frames of real
-    audio; the plain version with TF32-rounded GEMM inputs is not."""
+    """Within ``mel_limit`` (1.5x the plain f32 version's own error, at
+    least 1e-4 log10) of the f64 result over the frames of real audio; the
+    plain version with TF32-rounded GEMM inputs (one pass) is not."""
     rng = np.random.default_rng(0)
     audio = (rng.standard_normal(7 * 16000) * 0.1).astype(np.float32)
     n_real = frame_counts(len(audio))[1]
@@ -50,23 +73,62 @@ def test_mel_kernel_matches_plain(cuda, n_mels):
     padded = np.pad(padded, (0, -(-len(padded) // 480000) * 480000
                              - len(padded)))
     a16 = torch.from_numpy(padded.astype(np.float16)).to(cuda)[None]
-    basis = torch.from_numpy(M.dft_basis()).to(cuda)
     filt = torch.from_numpy(mel_filterbank(n_mels)).to(cuda)
-    before = M.log_mel_raw.launches
-    got = M.log_mel_raw(a16, basis, filt)
-    torch.cuda.synchronize()
-    assert M.log_mel_raw.launches == before + 1
-    want = M.log_mel_raw_plain(a16, basis, filt)
-    assert float((got - want)[..., :n_real].abs().max()) < 1e-4
+    e_ref, lim, e_tf32, e_plain = _mel_errors(a16, filt, [n_real])
+    print(f"K1 {n_mels} mels: f64 error {e_ref:.3e}, limit {lim:.3e}, "
+          f"one-pass TF32 {e_tf32:.3e}, against plain {e_plain:.3e}")
+    assert e_ref < lim < e_tf32
 
-    def tf32(x):
-        i = x.contiguous().view(torch.int32)
-        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
-    spec = tf32(a16.float().unfold(-1, 400, 160)) @ tf32(basis)
-    power = spec[..., :201] ** 2 + spec[..., 201:] ** 2
-    coarse = torch.log10(torch.clamp(tf32(power) @ tf32(filt).T,
-                                     min=1e-10)).transpose(1, 2)
-    assert float((coarse - want)[..., :n_real].abs().max()) > 1e-4
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_batch_ragged(cuda, n_mels):
+    """B 8 clips of ragged real lengths (3-21 s, quiet to loud, one
+    silent) padded to one L whose frame count is no multiple of the 8-frame
+    tile or of a CTA's chunk: each clip within ``mel_limit`` of the f64
+    result over its real frames, and bitwise equal to the same clip run
+    alone (no clip reads another's audio)."""
+    rng = np.random.default_rng(5)
+    secs = [3.0, 21.0, 7.3, 12.9, 5.5, 16.1, 9.7, 4.2]
+    clips = [(rng.standard_normal(int(s * 16000)) * sc).astype(np.float32)
+             for s, sc in zip(secs, [0.1, 0.5, 0.01, 0.2, 0.0, 0.05, 0.3,
+                                     1.0])]
+    clips[4][:] = 0.0
+    padded = [pad_audio(c) for c in clips]
+    L = max(len(p) for p in padded) + 5 * 160 + 37
+    F = (L - 400) // 160 + 1
+    assert F % 8 and F % 80
+    a = np.stack([np.pad(p, (0, L - len(p))) for p in padded])
+    a16 = torch.from_numpy(a.astype(np.float16)).to(cuda)
+    filt = torch.from_numpy(mel_filterbank(n_mels)).to(cuda)
+    n_real = [frame_counts(len(c))[1] for c in clips]
+    e_ref, lim, e_tf32, e_plain = _mel_errors(a16, filt, n_real)
+    print(f"K1 B 8 {n_mels} mels: f64 error {e_ref:.3e}, limit "
+          f"{lim:.3e}, one-pass TF32 {e_tf32:.3e}, against plain "
+          f"{e_plain:.3e}")
+    assert e_ref < lim < e_tf32
+    tables = M.mel_tables(torch.from_numpy(M.dft_basis()).to(cuda), filt)
+    batch = M.log_mel_raw(a16, tables)
+    for b in (0, 4, 7):
+        assert torch.equal(M.log_mel_raw(a16[b:b + 1].clone(), tables)[0],
+                           batch[b])
+    assert bool((batch[4] == -10.0).all())
+
+
+def test_mel_kernel_dense_filterbank(cuda):
+    """A filterbank with every bin of every mel nonzero: its runs and
+    weights (3 x 128 + 128 x 201 words) exceed the kernel's shared table,
+    so the kernel reads them from global memory; still within
+    ``mel_limit`` of the f64 result."""
+    rng = np.random.default_rng(9)
+    filt = torch.from_numpy((rng.random((128, 201)) * 0.01 + 1e-4)
+                            .astype(np.float32)).to(cuda)
+    audio = (rng.standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    a16 = torch.from_numpy(pad_audio(audio).astype(np.float16)).to(cuda)[None]
+    e_ref, lim, _, e_plain = _mel_errors(a16, filt,
+                                         [frame_counts(len(audio))[1]])
+    print(f"K1 dense 128 mels: f64 error {e_ref:.3e}, limit {lim:.3e}, "
+          f"against plain {e_plain:.3e}")
+    assert e_ref < lim
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
