@@ -77,6 +77,29 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    loaded through from_file, .full(TranscribeParams(), 90 s), counters
    zeroed just before: K13 must launch 4 times per window (4 audio
    layers), K2 never; K1, K3/K4 and K5 must launch.
+11. batched -- a fresh synthetic("tiny.en", seed=0) (bf16):
+   BatchTranscriber.transcribe(8 clips of 10-34 s, TranscribeParams()),
+   counters zeroed just before: K1 once, K2, K3 and K4 at 40 rows (8
+   streams x 5 decoder rows) and K5 must launch, every segment well
+   formed.  The nano model (3 text layers, f32, TF32 off) batched must
+   equal single-stream token for token (t = 0 rung, gates open).  Then
+   audio-s/s at B = 1 (the 8 clips one at a time), 8 and 16 (the 8 twice),
+   interleaved medians of 3, how many bf16 streams equal their
+   single-stream result (printed, not held: sampling rungs hash the row
+   index), and full_parallel(n=4) on 34 s (K1 once, K4 at 20 rows).
+12. server -- TranscriptionServer(batch_window_ms=300, max_batch=4) on
+   127.0.0.1:0: 4 concurrent WAV POSTs must decode as ONE batch (K1 once,
+   K4 at 20 rows) and every answer must parse.
+13. streaming -- StreamingTranscriber over 15 s pushed in 0.3 s pieces
+   (incremental mel): K2 must launch at more than one audio_ctx bucket,
+   K3/K4 and K5 too; tick p50 / p95 printed.  The incremental mel's
+   arithmetic held to the one-shot K1 mel on the same f16-rounded PCM
+   within mel_limit (the routes as fed, f32 and f16 PCM, differ by more:
+   printed); nano f32 streaming must give the same events with the
+   incremental and the one-shot mel route;
+   SpeechToText.transcribe once; cli.stream --mic --capture-backend
+   synthetic for 3 s on the port's native ring (built with g++ into
+   godot_whisper_tpu_torch/_build/).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -1292,6 +1315,16 @@ def check_goldens(torch, gt):
 
 
 # ---------------------------------------------------------- phases 9-10 --
+def check_segments(what: str, segs, n_vocab: int) -> None:
+    """Every segment well formed: times in order, tokens in the vocabulary
+    with finite log-probabilities."""
+    for s_ in segs:
+        if not (0 <= s_.t0 <= s_.t1 and s_.tokens and all(
+                0 <= t.id < n_vocab and np.isfinite(t.plog)
+                for t in s_.tokens)):
+            fail(f"{what}: malformed segment {s_}")
+
+
 def seg_view(segs):
     return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in segs]
 
@@ -1438,6 +1471,352 @@ def check_long_context(torch, gt, drive, tmp):
     return n
 
 
+# ------------------------------------------------------- phases 11-13 --
+GREEDY_OPEN = dict(entropy_thold=-1e9, logprob_thold=-1e9, best_of=1,
+                   temperature_inc=0.0)
+
+
+def nano3(torch, gt, gain: float = 1.0):
+    """nano with 3 text layers (2 mark a model distilled), f32, numpy seed
+    3, the decoder's final LayerNorm gain scaled by ``gain``."""
+    cfg = gt.get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=3, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano-3")
+    params = gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                            device="cuda")
+    params["decoder"]["ln"]["g"] *= gain
+    return gt.WhisperContext.from_params(cfg, params, device="cuda")
+
+
+def median(xs):
+    return float(np.median(np.asarray(xs, np.float64)))
+
+
+def check_batched(torch, gt, ctx, zero, read):
+    """Phase 11: BatchTranscriber over 8 clips at B = 8 on tiny.en bf16
+    (K1 once, K2-K5, K3 / K4 at 40 rows); nano f32 batched equal to
+    single-stream; audio-s/s at B = 1, 8, 16; full_parallel(n=4)."""
+    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
+    from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
+
+    secs = (10.0, 13.5, 17.0, 20.5, 24.0, 27.5, 31.0, 34.0)
+    whole = frozen_audio(34.0)
+    clips = [whole[:int(x * 16000)] for x in secs]
+    audio_s = float(sum(secs))
+    bt = BatchTranscriber(ctx)
+    p = gt.TranscribeParams()
+    n_vocab = ctx.config.n_vocab
+
+    zero(ctx)
+    t0 = time.perf_counter()
+    res8 = bt.transcribe(clips, p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, grp = read()
+    rows = dict(decode_attention.rows_launches)
+    tm = ctx.timings
+    log(f"batched: tiny.en bf16, B = 8 clips of {secs} s "
+        f"({audio_s:.1f} s audio), default ladder: wall {wall:.3f} s, "
+        f"{audio_s / wall:.2f} audio-s/s, {tm.n_encode} waves, "
+        f"{tm.n_decode} decode steps, {sum(len(r) for r in res8)} segments")
+    log(f"batched launches: {n}, decode_attention by (kv_group, rows) "
+        f"{rows}")
+    for b, segs in enumerate(res8):
+        check_segments(f"batched stream {b}", segs, n_vocab)
+    if not (n["log_mel_raw"] == 1 and n["flash_attention_bh"]
+            and n["fused_filter_sample"] and rows.get((1, 40))
+            and rows.get((5, 40))) or n["flash_attention_long"]:
+        fail("the batched path did not launch K1 once and K2, K3 / K4 at "
+             "40 rows and K5")
+
+    # nano f32 (TF32 off): batched equals single-stream token for token
+    nctx = nano3(torch, gt)
+    nbt = BatchTranscriber(nctx)
+    nclips = [whole[:int(x * 16000)] for x in (5.0, 8.0, 12.5)]
+    po = gt.TranscribeParams(**GREEDY_OPEN)
+    nb = nbt.transcribe(nclips, po)
+    ns = [nbt.transcribe([c], po)[0] for c in nclips]
+    same = [seg_view(a) == seg_view(b) for a, b in zip(nb, ns)]
+    log(f"batched nano f32 (5.0, 8.0, 12.5 s, t = 0 rung): batched equals "
+        f"single-stream {same}, segments {[len(x) for x in nb]}")
+    if not all(same) or not any(nb):
+        fail("nano f32: batched transcripts differ from single-stream")
+    del nctx, nbt
+
+    # throughput, interleaved: B = 1 (the 8 clips one at a time), B = 8,
+    # B = 16 (the 8 clips twice); medians of 3
+    walls = {1: [], 8: [], 16: []}
+    res1 = None
+    for _ in range(3):
+        for B in (1, 8, 16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if B == 1:
+                out = [bt.transcribe([c], p)[0] for c in clips]
+                res1 = out
+            else:
+                out = bt.transcribe(clips * (B // 8), p)
+            torch.cuda.synchronize()
+            walls[B].append(time.perf_counter() - t0)
+    rates = {B: (audio_s * max(B // 8, 1)) / median(w)
+             for B, w in walls.items()}
+    n_same = sum(seg_view(a) == seg_view(b) for a, b in zip(res8, res1))
+    log(f"batched throughput (tiny.en bf16, default ladder): audio-s/s "
+        f"B=1 {rates[1]:.2f}, B=8 {rates[8]:.2f}, B=16 {rates[16]:.2f} "
+        f"(median walls {median(walls[1]):.3f} / {median(walls[8]):.3f} / "
+        f"{median(walls[16]):.3f} s; walls {walls})")
+    log(f"batched bf16: {n_same} of 8 streams equal their single-stream "
+        "result")
+
+    zero(ctx)
+    t0 = time.perf_counter()
+    segs = ctx.full_parallel(p, whole, 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, grp = read()
+    log(f"full_parallel(n=4), 34.0 s: {len(segs)} segments, wall "
+        f"{wall:.3f} s, launches K1 {n['log_mel_raw']} K2 "
+        f"{n['flash_attention_bh']} K5 {n['fused_filter_sample']}, "
+        f"decode_attention by (kv_group, rows) "
+        f"{dict(decode_attention.rows_launches)}")
+    check_segments("full_parallel", segs, n_vocab)
+    if not (n["log_mel_raw"] == 1 and decode_attention.rows_launches.get(
+            (5, 20))):
+        fail("full_parallel(n=4) did not decode its chunks as one batch")
+    return rates
+
+
+def check_server(torch, gt, ctx, zero, read, tmp):
+    """Phase 12: the HTTP server with micro-batching; 4 concurrent WAV
+    POSTs must decode as one batch and each answer must parse."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from godot_whisper_tpu_torch.audio.wav import write_wav
+    from godot_whisper_tpu_torch.cli import serve
+    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
+    from godot_whisper_tpu_torch.parallel import batch as batch_mod
+
+    wavs = []
+    for i in range(4):
+        path = os.path.join(tmp, f"req{i}.wav")
+        write_wav(path, frozen_audio(5.0 + 2.0 * i))
+        with open(path, "rb") as f:
+            wavs.append(f.read())
+    sizes = []
+    orig = batch_mod.BatchTranscriber.transcribe
+
+    def spy(self, clips, tparams=None):
+        sizes.append(len(clips))
+        return orig(self, clips, tparams)
+
+    batch_mod.BatchTranscriber.transcribe = spy
+    server = serve.TranscriptionServer(ctx, batch_window_ms=300, max_batch=4)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/inference"
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    results = [None] * 4
+    lat = [0.0] * 4
+    go = threading.Barrier(4)
+
+    def post(i):
+        go.wait()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + "?temperature=0", data=wavs[i],
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            results[i] = json.loads(r.read())
+        lat[i] = time.perf_counter() - t0
+
+    try:
+        zero(ctx)
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t_ in posts:
+            t_.start()
+        for t_ in posts:
+            t_.join(600)
+        n, grp = read()
+    finally:
+        batch_mod.BatchTranscriber.transcribe = orig
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+        server.close()
+    log(f"server: 4 concurrent POSTs (5, 7, 9, 11 s WAVs), batch window "
+        f"300 ms, max batch 4: batches {sizes}, latencies "
+        f"{[round(x, 3) for x in lat]} s, launches K1 {n['log_mel_raw']} "
+        f"K2 {n['flash_attention_bh']} K5 {n['fused_filter_sample']}, "
+        f"decode_attention by (kv_group, rows) "
+        f"{dict(decode_attention.rows_launches)}, answers "
+        f"{[None if r is None else r.get('text', '')[:40] for r in results]}")
+    if sizes != [4]:
+        fail(f"the server did not decode the 4 requests as one batch: "
+             f"{sizes}")
+    if not all(isinstance(r, dict) and isinstance(r.get("text"), str)
+               for r in results):
+        fail("a server answer did not parse")
+    if not (n["log_mel_raw"] == 1 and decode_attention.rows_launches.get(
+            (5, 20))):
+        fail("the server's batch did not run K1 once and K4 at 20 rows")
+
+
+def check_streaming(torch, gt, ctx, zero, read):
+    """Phase 13: StreamingTranscriber over 15 s in 0.3 s pushes (K2 at
+    several audio_ctx buckets, tick p50 / p95); SpeechToText.transcribe;
+    cli.stream --mic on the synthetic device through the port's native
+    ring.  Two checks of the incremental mel:
+    - its arithmetic: the incremental mel (f32 host frames) against the
+      one-shot K1 mel on the SAME input, PCM rounded to f16, within
+      mel_limit.  This is not the two routes as the path feeds them: the
+      streaming route feeds f32 PCM, while the one-shot route rounds PCM
+      to f16 before K1 (as the JAX package does), which moves quiet bins
+      by far more than mel_limit; that gap is printed;
+    - the routes as the path runs them: nano f32 streaming must give the
+      same events with the incremental route and the one-shot route."""
+    from godot_whisper_tpu_torch.cli import stream as cli_stream
+    from godot_whisper_tpu_torch.native import bindings
+    from godot_whisper_tpu_torch.ops.attention import flash_attention_bh
+    from godot_whisper_tpu_torch.runtime.speech_to_text import SpeechToText
+    from godot_whisper_tpu_torch.runtime.streaming import (IncrementalMel,
+                                                           StreamingConfig,
+                                                           StreamingTranscriber)
+
+    utter = frozen_audio(15.0)
+    step = 4800
+    st = StreamingTranscriber(ctx, StreamingConfig())
+    zero(ctx)
+    ticks, reports = [], []
+    for i in range(0, len(utter), step):
+        st.push_audio(utter[i:i + step])
+        t0 = time.perf_counter()
+        r = st.process_once()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        reports.append(r)
+    n, grp = read()
+    ctxs = dict(sorted(flash_attention_bh.ctx_launches.items()))
+    p50, p95 = np.percentile(np.asarray(ticks), [50, 95])
+    log(f"streaming: tiny.en bf16, 15.0 s in {len(ticks)} pushes of 0.3 s, "
+        f"incremental mel: tick p50 {p50:.1f} ms, p95 {p95:.1f} ms, max "
+        f"{max(ticks):.1f} ms; {len(st.finalized_texts)} sentences "
+        f"finalized; K2 launches by audio_ctx {ctxs}; launches {n}, "
+        f"decode_attention by kv_group {grp}")
+    log(f"streaming audio_ctx per tick: "
+        f"{[r['audio_ctx'] for r in reports if r and 'audio_ctx' in r]}")
+    if len(ctxs) < 2 or not (n["fused_filter_sample"] and grp.get(1)
+                             and grp.get(5)):
+        fail("the streaming path did not launch K2 at several audio_ctx "
+             "buckets, or K3 / K4 / K5 never launched")
+
+    # the incremental mel (host frames, normalized on the card) against
+    # the one-shot K1 mel of the same f16-rounded PCM (the one-shot route
+    # rounds PCM to f16 before K1), over the real frames after the max-8
+    # clamp, in log10.  The limit is phase 2's for K1: mel_limit of the
+    # plain f32 version's own error against the f64 result on this audio,
+    # clamped alike (the host frames sit near the f64 result)
+    from godot_whisper_tpu_torch.audio.mel import pad_audio
+    from godot_whisper_tpu_torch.ops import mel_kernel as M
+    pipe = ctx.pipeline
+    a16 = utter.astype(np.float16).astype(np.float32)
+
+    def incremental(audio):
+        inc = IncrementalMel(pipe)
+        for i in range(0, len(audio), step):
+            inc.feed(audio[i:i + step])
+        mel, _, n_org = inc.normalized()
+        return mel[:, :n_org].float().cpu().numpy(), n_org
+
+    got, n_org = incremental(a16)
+    one = pipe.mel.device(a16)[0][:, :n_org].float().cpu().numpy()
+    padded = pad_audio(a16)
+    padded = np.pad(padded, (0, -(-len(padded) // 480000) * 480000
+                             - len(padded)))
+    dev = pipe.device
+    pcm = torch.from_numpy(padded.astype(np.float16)).to(dev)[None]
+    basis = torch.from_numpy(M.dft_basis()).to(dev)
+    filt = torch.from_numpy(pipe.mel.filters).to(dev)
+    def normalized(raw):
+        raw = raw[0, :, :n_org].double()
+        return ((torch.maximum(raw, raw.max() - 8.0) + 4.0) / 4.0
+                ).cpu().numpy()
+
+    ref_n = normalized(mel_f64(torch, pcm, basis, filt))
+    e_plain = 4.0 * float(np.abs(normalized(M.log_mel_raw_plain(
+        pcm, basis, filt)) - ref_n).max())
+    e_inc = 4.0 * float(np.abs(got - ref_n).max())
+    e_k1 = 4.0 * float(np.abs(one - ref_n).max())
+    e_two = 4.0 * float(np.abs(got - one).max())
+    lim = mel_limit(e_plain)
+    got32, _ = incremental(utter)
+    one32 = pipe.mel.device(utter)[0][:, :n_org].float().cpu().numpy()
+    e_pcm = 4.0 * float(np.abs(got32 - one32).max())
+    log(f"incremental vs one-shot mel, {n_org} real frames (log10): "
+        f"{e_two:.3e} on f16-rounded PCM (limit {lim:.3e} = max(1e-4, "
+        f"1.5 x the plain f32 version's {e_plain:.3e} against f64); "
+        f"against f64: incremental {e_inc:.3e}, K1 {e_k1:.3e}; "
+        f"{e_pcm:.3e} on the f32 PCM that the streaming path feeds (the "
+        "one-shot route rounds it to f16)")
+    if not e_two <= lim:
+        fail("the incremental mel is farther from the one-shot mel than "
+             "mel_limit")
+
+    # nano f32, confident decoder: incremental and one-shot routes
+    nctx = nano3(torch, gt, gain=30.0)
+    outs = {}
+    for inc_on in (True, False):
+        ev = []
+        nst = StreamingTranscriber(
+            nctx, StreamingConfig(minimum_sentence_time=0.5,
+                                  maximum_sentence_time=1.5,
+                                  incremental_mel=inc_on),
+            on_transcription=lambda p_, t_: ev.append((p_, t_)))
+        for i in range(0, 3 * 16000, step):
+            nst.push_audio(utter[i:i + step])
+            nst.process_once()
+        outs[inc_on] = (ev, list(nst.finalized_texts))
+    log(f"nano f32 streaming, 3.0 s: incremental and one-shot mel routes "
+        f"give {'the same' if outs[True] == outs[False] else 'DIFFERENT'} "
+        f"events ({len(outs[True][0])} events, "
+        f"{sum(1 for p_, _ in outs[True][0] if not p_)} final)")
+    if outs[True] != outs[False]:
+        for k, (a, b) in enumerate(zip(*(outs[x][0] for x in (True,
+                                                              False)))):
+            if a != b:
+                log(f"  tick {k}: incremental {a} one-shot {b}")
+        fail(f"nano streaming: the incremental and one-shot mel routes "
+             f"gave different events (largest per-bin gap of the two "
+             f"routes on the 15 s utterance {e_pcm:.3e} log10)")
+    if not outs[True][0]:
+        fail("nano streaming gave no events")
+    del nctx
+
+    stt = SpeechToText(ctx, mix_rate=16000)
+    t0 = time.perf_counter()
+    res = stt.transcribe(frozen_audio(5.0), "", 0)
+    torch.cuda.synchronize()
+    log(f"SpeechToText.transcribe (5.0 s): {time.perf_counter() - t0:.3f} "
+        f"s, text {res[0]!r:.60}, {len(res) - 1} tokens")
+    if not (isinstance(res[0], str) and all(
+            {"text", "id", "p", "t0", "t1"} <= d.keys() for d in res[1:])):
+        fail("SpeechToText.transcribe did not return [text, token dicts]")
+
+    err, out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = cli_stream.main(["--synthetic", "tiny.en", "--mic",
+                              "--capture-backend", "synthetic",
+                              "--duration", "3", "--step", "0.3"])
+    lines = out.getvalue().splitlines()
+    log(f"cli.stream --mic (synthetic device, 3 s): rc {rc}, "
+        f"{len(lines)} lines, {err.getvalue().strip()!r:.100}; native "
+        f"library {bindings.library_path()}")
+    if rc != 0 or "into a NativeRing" not in err.getvalue() or not (
+            lines and lines[-2:-1] == ["---"]):
+        fail("cli.stream --mic did not run on the port's native ring")
+    return p50, p95
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -1495,20 +1874,25 @@ def main() -> int:
                 reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
                 xattn_q_packed, flash_attention_long)
 
-    def drive(what, c, tparams, audio_s):
+    def zero(c):
+        """Every launch counter to 0, and ``c``'s timings."""
         for fn in counters:
             fn.launches = 0
-        decode_attention.group_launches.clear()
-        quant_matmul.layout_launches.clear()
-        quant_matmul.route_launches.clear()
-        quant_matmul4.route_launches.clear()
-        xattn_q_packed.mode_launches.clear()
+        for cnt in (decode_attention.group_launches,
+                    decode_attention.rows_launches,
+                    flash_attention_bh.ctx_launches,
+                    quant_matmul.layout_launches,
+                    quant_matmul.route_launches,
+                    quant_matmul4.route_launches,
+                    xattn_q_packed.mode_launches):
+            cnt.clear()
         c.timings.reset()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        segs = c.full(tparams, frozen_audio(audio_s))
+
+    def read():
+        """(launches by kernel and route, decode_attention launches by
+        kv_group) since the last ``zero``."""
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         n = {fn.__name__: fn.launches for fn in counters}
         n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
         for route in ("io_rows", "oi_rows", "tc"):
@@ -1516,17 +1900,21 @@ def main() -> int:
         for route in ("rows", "tc"):
             n[f"quant_matmul4_{route}"] = quant_matmul4.route_launches[route]
         n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
-        grp = dict(decode_attention.group_launches)
+        return n, dict(decode_attention.group_launches)
+
+    def drive(what, c, tparams, audio_s):
+        zero(c)
+        t0 = time.perf_counter()
+        segs = c.full(tparams, frozen_audio(audio_s))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, grp = read()
         tm = c.timings
         log(f"{what}: {len(segs)} segments, wall {wall:.3f} s, "
             f"{audio_s / wall:.2f} audio-s/s, {tm.n_decode} decode steps, "
             f"{tm.n_encode} windows, {tm.n_fail_p} windows not emitted")
         log(f"{what} launches: {n}, decode_attention by kv_group {grp}")
-        for s_ in segs:
-            if not (0 <= s_.t0 <= s_.t1 and s_.tokens and all(
-                    0 <= t.id < c.config.n_vocab and np.isfinite(t.plog)
-                    for t in s_.tokens)):
-                fail(f"malformed segment {s_}")
+        check_segments(what, segs, c.config.n_vocab)
         return n, grp, segs
 
     # ---- phase 4: the main path
@@ -1611,6 +1999,13 @@ def main() -> int:
         check_file_path(torch, gt, ctx, segs4, drive, tmp)
         del ctx
         n10 = check_long_context(torch, gt, drive, tmp)
+
+        # ---- phases 11-13: batched serving and real-time streaming
+        bctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
+        check_batched(torch, gt, bctx, zero, read)
+        check_server(torch, gt, bctx, zero, read, tmp)
+        check_streaming(torch, gt, bctx, zero, read)
+        del bctx
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -5,8 +5,8 @@
         --output-srt --output-json
 
 The JAX package's flags, one for one, plus ``--device`` (default ``cuda``;
-``cpu`` runs every kernel's plain version).  ``-p`` above 1 needs
-``full_parallel``, which is not ported yet.
+``cpu`` runs every kernel's plain version).  ``-p N`` splits each file into
+N chunks decoded as one batch (``full_parallel``).
 """
 
 from __future__ import annotations
@@ -86,11 +86,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.files:
         print("error: no input files", file=sys.stderr)
         return 1
-    if args.processors > 1:
-        raise NotImplementedError(
-            "-p > 1 runs full_parallel, which is not ported to "
-            "godot_whisper_tpu_torch yet")
-
     import godot_whisper_tpu_torch as gwt
     from ..audio.resample import resample
     from ..audio.wav import read_wav
@@ -135,7 +130,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         samples, rate = read_wav(path)
         if rate != gwt.SAMPLE_RATE:
             samples = resample(samples, rate, gwt.SAMPLE_RATE)
-        segments = ctx.full(tparams, samples)
+        if args.processors > 1:
+            segments = ctx.full_parallel(tparams, samples, args.processors)
+        else:
+            segments = ctx.full(tparams, samples)
 
         if args.detect_language:
             lid = ctx.full_lang_id()

@@ -18,10 +18,12 @@ paths.  A multilingual model with ``language="auto"`` (or None) or
 ``detect_language`` first runs ``detect_language`` (one encode, one [sot]
 decode, a softmax over the language tokens); ``token_timestamps`` fills each
 token's t0/t1 from the kept samples' energy and ``max_len`` re-splits
-segments (``decode/timestamps.py``).  What the JAX package serves through
-its host-stepped decoder (grammar and the logit-filter callback) and
-injected mels wait for later slices; ``full`` raises NotImplementedError for
-them instead of ignoring them.
+segments (``decode/timestamps.py``).  A mel set from outside (``set_mel``,
+or the streaming path's ``set_mel_device``) decodes through the whole-clip
+path as the pipeline's own does.  What the JAX package serves through its
+host-stepped decoder (grammar and the logit-filter callback) waits for a
+later slice; ``full`` raises NotImplementedError for it instead of ignoring
+it.
 
 Timestamps are in the reference's centisecond units (t0/t1 are 10 ms ticks,
 token_beg + n <-> n * 20 ms).
@@ -138,6 +140,38 @@ class WhisperPipeline:
             _, self._n_len_org = frame_counts(len(samples))
         self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
 
+    def mel_host(self) -> Optional[np.ndarray]:
+        """Host copy of the current mel (n_mels, n_len)."""
+        if self._mel_device is None:
+            return None
+        return self._mel_device[:, :self._mel_n_len].float().cpu().numpy()
+
+    def set_mel(self, mel: np.ndarray, n_len_org: Optional[int] = None):
+        """External mel (n_mels, n_len) (whisper_set_mel, whisper.h:262-270).
+        It goes to the device with 2 * n_audio_ctx zero frames behind it, so
+        a window starting anywhere inside it reads the mel and then zeros, as
+        the JAX package's host window copy does."""
+        mel = np.asarray(mel, dtype=np.float32)
+        n_len = mel.shape[1]
+        buf = torch.zeros((mel.shape[0], n_len + 2 * self.config.n_audio_ctx),
+                          dtype=torch.float32, device=self.device)
+        buf[:, :n_len] = torch.from_numpy(mel).to(self.device)
+        self._mel_device, self._mel_n_len = buf, n_len
+        self._n_len_org = n_len_org or n_len
+
+    def set_mel_device(self, mel_dev: torch.Tensor, n_len: int,
+                       n_len_org: int,
+                       samples: Optional[np.ndarray] = None) -> None:
+        """Decode from a normalized mel (n_mels, F) already on the device:
+        the incremental streaming path feeds new frames only and normalizes
+        on the device (runtime/streaming.py)."""
+        self._mel_device = mel_dev
+        self._mel_n_len = int(n_len)
+        self._n_len_org = int(n_len_org)
+        self._samples = (np.asarray(samples, dtype=np.float32)
+                         if samples is not None else None)
+        self._energy = None
+
     # -------------------------------------------------------------- language
     def detect_language(self, seek: int = 0,
                         audio_ctx: int = 0) -> Tuple[int, np.ndarray]:
@@ -171,7 +205,7 @@ class WhisperPipeline:
         if samples is not None and len(samples) > 0:
             self.set_audio(samples)
         if self._mel_device is None:
-            raise ValueError("no audio set")
+            raise ValueError("no audio or mel set")
 
         # language auto-detect (whisper.cpp:4985-5001)
         language = tparams.language
@@ -244,9 +278,12 @@ class WhisperPipeline:
             max_initial_ts=tparams.max_initial_ts, device=self.device)
 
     def clip_decoder(self, tparams: TranscribeParams, temperatures,
-                     prompt_init, no_timestamps: bool) -> ClipDecoder:
+                     prompt_init, no_timestamps: bool,
+                     batch: int = 1) -> ClipDecoder:
+        """The whole-clip decoder of ``batch`` streams for these params,
+        cached per statics, filter settings and task prefix."""
         statics = ClipStatics(
-            config=self.config, batch=1, audio_ctx=tparams.audio_ctx,
+            config=self.config, batch=batch, audio_ctx=tparams.audio_ctx,
             temps=tuple(temperatures),
             use_past=tparams.n_max_text_ctx > 0, n_init=len(prompt_init),
             n_max_text_ctx=tparams.n_max_text_ctx,

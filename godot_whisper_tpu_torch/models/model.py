@@ -368,11 +368,13 @@ def _dequant_xkv_layer(xkv: QuantCrossKV, li: int, n_head: int):
 def decoder_dense(params: Params, config: WhisperConfig,
                   tokens: torch.Tensor, positions: torch.Tensor,
                   kv: KVCache, xkv, n_valid: torch.Tensor,
-                  logit_rows: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, KVCache]:
-    """Decoder over T new tokens written at cache slots [0, T): the prompt
-    pass.  Slot c is visible to query t iff c <= t and c < n_valid[b].
-    ``logit_rows`` (B,) keeps only those positions' logits.  Attention here
+                  logit_rows: Optional[torch.Tensor] = None,
+                  start: int = 0) -> Tuple[torch.Tensor, KVCache]:
+    """Decoder over T new tokens written at cache slots [start, start + T):
+    the prompt pass (start 0) and the stage-level ``decode``.  Slot c is
+    visible to query t iff c <= start + t and it is history (c < start) or
+    a real row of this call (c - start < n_valid[b]).  ``logit_rows`` (B,)
+    keeps only those positions' logits.  Attention here
     is the plain masked product (``mha``), as the JAX package leaves it to
     XLA; an int8 ``xkv`` (QuantCrossKV) is dequantized per layer to bf16
     first.  Writes into ``kv`` in place and returns (logits, kv)."""
@@ -387,7 +389,7 @@ def decoder_dense(params: Params, config: WhisperConfig,
     nv = n_valid.reshape(-1, 1, 1, 1).to(dev)
     c_pos = torch.arange(C, device=dev)[None, None, None, :]
     q_idx = torch.arange(T, device=dev)[None, None, :, None]
-    ok = (c_pos <= q_idx) & (c_pos < nv)
+    ok = (c_pos <= start + q_idx) & ((c_pos < start) | (c_pos - start < nv))
     zero = torch.zeros((), device=dev)
     self_mask = torch.where(ok, zero, torch.full((), _NEG, device=dev))
     quant_xkv = isinstance(xkv, QuantCrossKV)
@@ -406,8 +408,8 @@ def decoder_dense(params: Params, config: WhisperConfig,
         ln0, attn = layer["attn_ln"], layer["attn"]
         h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
         q, k_new, v_new = _self_qkv(h, attn)
-        kv.k[li, :, :T] = k_new.to(kv.k.dtype)
-        kv.v[li, :, :T] = v_new.to(kv.v.dtype)
+        kv.k[li, :, start:start + T] = k_new.to(kv.k.dtype)
+        kv.v[li, :, start:start + T] = v_new.to(kv.v.dtype)
         o = attend(q, kv.k[li], kv.v[li], self_mask)
         x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
                                    out_dtype=cdtype))

@@ -23,6 +23,8 @@ f32.
 
 from __future__ import annotations
 
+import collections
+
 from typing import Optional
 
 import torch
@@ -135,10 +137,11 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     fn = K.entry("enc_attn", "gwt_enc_attn",
                  (K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.F, K.I, K.P))
-    K.launch(fn, "gwt_enc_attn", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), bh, t, d, tv, float(d ** -0.5), _DTYPES[q.dtype],
-             K.stream_ptr(q.device))
+    K.launch(fn, "gwt_enc_attn", q.device,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), bh, t, d, tv, float(d ** -0.5), _DTYPES[q.dtype])
     flash_attention_bh.launches += 1
+    flash_attention_bh.ctx_launches[tv] += 1
     return out
 
 
@@ -156,12 +159,14 @@ def flash_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     fn = K.entry("enc_attn_long", "gwt_enc_attn_long",
                  (K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.I, K.F, K.I, K.P))
-    K.launch(fn, "gwt_enc_attn_long", q.data_ptr(), k.data_ptr(),
+    K.launch(fn, "gwt_enc_attn_long", q.device, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), out.data_ptr(), bh, t, d, tv, float(d ** -0.5),
-             _DTYPES[q.dtype], K.stream_ptr(q.device))
+             _DTYPES[q.dtype])
     flash_attention_long.launches += 1
     return out
 
 
 flash_attention_bh.launches = 0
+# K2 launches by the valid sequence length (the encoder's audio_ctx)
+flash_attention_bh.ctx_launches = collections.Counter()
 flash_attention_long.launches = 0

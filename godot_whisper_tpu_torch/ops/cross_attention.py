@@ -207,11 +207,10 @@ def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
     out = torch.empty((b, s), dtype=torch.float32, device=q.device)
     fn = K.entry("cross_attn", "gwt_xattn_q", (K.P,) * 7 + (K.I,) * 7
                  + (K.F, K.P))
-    K.launch(fn, "xattn_q_wide", qb.data_ptr(), k_q.data_ptr(),
+    K.launch(fn, "xattn_q_wide", q.device, qb.data_ptr(), k_q.data_ptr(),
              k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
              out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
-             n_head, kv_group, sl * nc, float((s // n_head) ** -0.5),
-             K.stream_ptr(q.device))
+             n_head, kv_group, sl * nc, float((s // n_head) ** -0.5))
     xattn_q_wide.launches += 1
     return out
 
@@ -228,11 +227,11 @@ def xattn_q_packed(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
     out = torch.empty((b, s), dtype=torch.float32, device=q.device)
     fn = K.entry("cross_attn", "gwt_xattn_packed", (K.P,) * 7 + (K.I,) * 8
                  + (K.F, K.P))
-    K.launch(fn, "xattn_q_packed", qb.data_ptr(), k_q.data_ptr(),
+    K.launch(fn, "xattn_q_packed", q.device, qb.data_ptr(), k_q.data_ptr(),
              k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
              out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
              n_head, kv_group, sl * nc, int(w8a8),
-             float((s // n_head) ** -0.5), K.stream_ptr(q.device))
+             float((s // n_head) ** -0.5))
     xattn_q_packed.launches += 1
     xattn_q_packed.mode_launches["w8a8" if w8a8 else "exact"] += 1
     return out

@@ -204,16 +204,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = buf[:b * s].view(b, s)
     fn = K.entry("decode_attn", "gwt_decode_attn",
                  (K.P,) * 7 + (K.I,) * 8 + (K.F, K.I, K.I, K.I, K.P))
-    K.launch(fn, "gwt_decode_attn", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    K.launch(fn, "gwt_decode_attn", q.device,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(),
              lo.data_ptr(), out.data_ptr(), buf[b * s:].data_ptr(),
              K.tickets(q.device, g * n_head).data_ptr(), int(layer), g, c, s,
              n_head, kv_group, int(split), int(hi), float(d ** -0.5), sl,
-             n_split, _DTYPES[q.dtype], K.stream_ptr(q.device))
+             n_split, _DTYPES[q.dtype])
     decode_attention.launches += 1
     decode_attention.group_launches[kv_group] += 1
+    decode_attention.rows_launches[(kv_group, b)] += 1
     return out
 
 
 decode_attention.launches = 0
 # launches split by kv_group: 1 is the TPU's K3 case, > 1 its K4 case
 decode_attention.group_launches = collections.Counter()
+# launches by (kv_group, query rows): a batch of B streams gives 5 * B rows
+decode_attention.rows_launches = collections.Counter()

@@ -221,12 +221,13 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
     k = kernels
     fn = k.entry("filter_sample", "gwt_filter_sample",
                  (k.P,) * 9 + (k.I,) * 10 + (k.F, k.U, k.P))
-    k.launch(fn, "gwt_filter_sample", logits.data_ptr(), suppress.data_ptr(),
+    k.launch(fn, "gwt_filter_sample", dev,
+             logits.data_ptr(), suppress.data_ptr(),
              state.data_ptr(), tok.data_ptr(), p.data_ptr(), plog.data_ptr(),
              pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, C,
              width // FILTER_THREADS, eot, beg, space_id, max_initial_tid,
              int(suppress_blank), int(no_timestamps), float(temperature),
-             seed & _MASK32, k.stream_ptr(dev))
+             seed & _MASK32)
     fused_filter_sample.launches += 1
     return SampleOut(token=tok, p=p, plog=plog, pt=pt, ptsum=ptsum, tid=tid)
 
@@ -294,12 +295,12 @@ def fused_filter_topk(logits: torch.Tensor, suppress: torch.Tensor,
     k = kernels
     fn = k.entry("filter_sample", "gwt_filter_topk",
                  (k.P,) * 9 + (k.I,) * 11 + (k.F, k.P))
-    k.launch(fn, "gwt_filter_topk", logits.data_ptr(), suppress.data_ptr(),
+    k.launch(fn, "gwt_filter_topk", dev,
+             logits.data_ptr(), suppress.data_ptr(),
              state.data_ptr(), plog.data_ptr(), ids.data_ptr(), p.data_ptr(),
              pt.data_ptr(), ptsum.data_ptr(), tid.data_ptr(), B, V, C,
              width // FILTER_THREADS, K, eot, beg, space_id, max_initial_tid,
-             int(suppress_blank), int(no_timestamps), float(temperature),
-             k.stream_ptr(dev))
+             int(suppress_blank), int(no_timestamps), float(temperature))
     fused_filter_topk.launches += 1
     return TopKOut(plog=plog, ids=ids, p=p, pt=pt, ptsum=ptsum, tid=tid)
 

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -94,15 +95,20 @@ def build_all() -> Dict[str, str]:
     return logs
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of csrc/<name>.cu (built on first use)."""
+    """The loaded shared library of csrc/<name>.cu (built on first use;
+    threads that need a kernel first at the same time build once)."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel source {name!r}")
-    path = _lib_path(name)
-    if not path.exists():
-        build_all()
-    return ctypes.CDLL(str(path))
+    with _BUILD_LOCK:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        return ctypes.CDLL(str(path))
 
 
 P = ctypes.c_void_p
@@ -121,18 +127,18 @@ def entry(source: str, symbol: str, argtypes: tuple):
     return fn
 
 
-def launch(fn, what: str, *args) -> None:
-    """Call a C entry point; raise if it returned a CUDA error (a launch
-    the CUDA runtime refused never runs, and a later synchronize would not
-    report it)."""
-    err = fn(*args)
+def launch(fn, what: str, device, *args) -> None:
+    """Call a C entry point with ``device``'s current stream as its last
+    argument, ``device`` being the calling thread's current CUDA device
+    for the call (a kernel launches on the current device, and a worker
+    thread starts on device 0 whatever card its tensors lie on); raise if
+    it returned a CUDA error (a launch the CUDA runtime refused never runs,
+    and a later synchronize would not report it)."""
+    import torch
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
-
-
-def stream_ptr(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require_cuda(what: str, *tensors) -> None:

@@ -57,9 +57,9 @@ def reorder_kv_live(k: torch.Tensor, v: torch.Tensor, src: torch.Tensor,
                          "int32, 0 <= hi <= C, out distinct from k/v")
     fn = K.entry("kv_reorder", "gwt_reorder_kv",
                  (K.P,) * 5 + (K.I,) * 6 + (K.P,))
-    K.launch(fn, "gwt_reorder_kv", k.data_ptr(), v.data_ptr(),
+    K.launch(fn, "gwt_reorder_kv", k.device, k.data_ptr(), v.data_ptr(),
              k_out.data_ptr(), v_out.data_ptr(), src.data_ptr(), n_layer, b,
-             c, s, item, int(hi), K.stream_ptr(k.device))
+             c, s, item, int(hi))
     reorder_kv_live.launches += 1
     return k_out, v_out
 

@@ -154,10 +154,11 @@ def log_mel_raw(audio: torch.Tensor, tables: MelTables) -> torch.Tensor:
     ctas = mel_ctas(B, n_frames, K.sm_count(audio.device.index or 0))
     fn = K.entry("mel", "gwt_mel", (K.P, K.P, K.P, K.P, K.P, K.I, K.I, K.I,
                                     K.I, K.I, K.I, K.P))
-    K.launch(fn, "gwt_mel", audio.data_ptr(), tables.frag_basis.data_ptr(),
+    K.launch(fn, "gwt_mel", audio.device,
+             audio.data_ptr(), tables.frag_basis.data_ptr(),
              tables.runs.data_ptr(), tables.weights.data_ptr(),
              out.data_ptr(), B, L, n_frames, n_mels,
-             tables.weights.numel(), ctas, K.stream_ptr(audio.device))
+             tables.weights.numel(), ctas)
     log_mel_raw.launches += 1
     return out
 

@@ -250,9 +250,9 @@ def _launch(name: str, layout: int, x2: torch.Tensor, qt, out: torch.Tensor,
     O = out.shape[1]
     fn = K.entry("qmatmul", "gwt_qmatmul",
                  (K.P,) * 4 + (K.I,) * 7 + (K.P,))
-    K.launch(fn, name, x2.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(),
-             out.data_ptr(), M, S, O, layout, group, slice_rows, n_split,
-             K.stream_ptr(x2.device))
+    K.launch(fn, name, x2.device,
+             x2.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(),
+             out.data_ptr(), M, S, O, layout, group, slice_rows, n_split)
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor, *,

@@ -149,12 +149,12 @@ def split_beam_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     out = buf[:b * s].view(b, s)
     fn = K.entry("split_attn", "gwt_split_beam_attn",
                  (K.P,) * 10 + (K.I,) * 8 + (K.F, K.I, K.I, K.I, K.I, K.P))
-    K.launch(fn, "gwt_split_beam_attn", q.data_ptr(), kp.data_ptr(),
+    K.launch(fn, "gwt_split_beam_attn", q.device, q.data_ptr(), kp.data_ptr(),
              vp.data_ptr(), kl.data_ptr(), vl.data_ptr(), lo.data_ptr(),
              rowmap.data_ptr(), out.data_ptr(), buf[b * s:].data_ptr(),
              K.tickets(q.device, g * n_head).data_ptr(), int(layer), g, cp,
              nl, s, n_head, kv_group, int(hi_live), float(d ** -0.5), sl, n_p,
-             n_l, _DTYPES[q.dtype], K.stream_ptr(q.device))
+             n_l, _DTYPES[q.dtype])
     split_beam_attention.launches += 1
     return out
 

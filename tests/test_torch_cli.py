@@ -102,13 +102,21 @@ def test_cli_outputs_match_jax(pico_bin, tmp_path, rate, flags):
 
 
 def test_cli_refuses_parallel_and_needs_a_device(pico_bin, tmp_path):
-    """-p > 1 (full_parallel) is not ported and says so; the default device
-    is the card, which raises without one."""
+    """-p 2 (full_parallel: two chunks decoded as one batch) writes the
+    JAX CLI's transcript byte for byte; the default device is the card,
+    which raises without one."""
     import torch
     wav = str(tmp_path / "in.wav")
     _wav(wav, 16000)
-    with pytest.raises(NotImplementedError, match="full_parallel"):
-        port_main(["-m", pico_bin, wav, "-p", "2", "--device", "cpu"])
+    txt = {}
+    for name, main, extra in (("jax", jax_main, []),
+                              ("port", port_main, ["--device", "cpu"])):
+        base = str(tmp_path / name)
+        assert main(["-m", pico_bin, wav, "-p", "2", "-otxt", "-of", base]
+                    + GREEDY + extra) == 0
+        with open(base + ".txt") as f:
+            txt[name] = f.read()
+    assert txt["port"] == txt["jax"] and txt["port"].strip()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_main(["-m", pico_bin, wav, "--no-prints"])

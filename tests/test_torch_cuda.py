@@ -957,3 +957,62 @@ def test_k10_k11_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
+
+
+def _nano3(gain=1.0):
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=3, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano-3")
+    params = gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                            device="cuda")
+    params["decoder"]["ln"]["g"] *= gain
+    return gt.WhisperContext.from_params(cfg, params, device="cuda")
+
+
+def _tone(seconds):
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    return (0.3 * np.sin(2 * np.pi * (220.0 + 60 * np.sin(
+        2 * np.pi * 0.07 * t)) * t)
+        + 0.2 * np.sin(2 * np.pi * 447.0 * t)).astype(np.float32)
+
+
+def test_batched_nano_equals_single_stream_on_card(cuda):
+    """BatchTranscriber on the card: three ragged nano f32 streams of one
+    decoder row each (best_of 1: self- and cross-attention both at
+    kv_group 1, 3 rows) through K1 (one launch), K2-K5, each equal to its
+    single-stream decode token for token (t = 0 rung, gates open)."""
+    from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
+    ctx = _nano3()
+    bt = BatchTranscriber(ctx)
+    p = gt.TranscribeParams(entropy_thold=-1e9, logprob_thold=-1e9,
+                            best_of=1, temperature_inc=0.0)
+    clips = [_tone(x) for x in (2.0, 5.5, 9.0)]
+    before = M.log_mel_raw.launches
+    D.decode_attention.rows_launches.clear()
+    batched = bt.transcribe(clips, p)
+    assert M.log_mel_raw.launches == before + 1
+    assert set(D.decode_attention.rows_launches) == {(1, 3)}
+
+    def view(segs):
+        return [(s.text, s.t0, s.t1, [x.id for x in s.tokens]) for s in segs]
+    assert any(batched)
+    for segs, clip in zip(batched, clips):
+        assert view(segs) == view(bt.transcribe([clip], p)[0])
+
+
+def test_incremental_mel_on_card_matches_host(cuda):
+    """IncrementalMel's buffer lives on the card; fed in 0.3 s pushes it
+    equals the one-shot host mel within 2e-5 (the JAX suite's limit)."""
+    from godot_whisper_tpu_torch.audio.mel import log_mel_host
+    from godot_whisper_tpu_torch.runtime.streaming import IncrementalMel
+    ctx = _nano3()
+    audio = _tone(3.1)
+    inc = IncrementalMel(ctx.pipeline)
+    for i in range(0, len(audio), 4800):
+        inc.feed(audio[i:i + 4800])
+    mel, _, _ = inc.normalized()
+    assert mel.device.type == "cuda"
+    np.testing.assert_allclose(
+        mel.cpu().numpy(), log_mel_host(audio, ctx.pipeline.mel.filters,
+                                        n_frames=inc.cap),
+        atol=2e-5, rtol=2e-5)

@@ -93,6 +93,45 @@ def test_cli_runtime_leaves_jax_unloaded(tmp_path):
     assert (tmp_path / "a.wav.txt").exists()
 
 
+def test_serving_and_streaming_modules_leave_jax_unloaded():
+    """Every module of the port imported, then a nano batch of two clips,
+    full_parallel, a streaming tick on the incremental mel and the server
+    class, all on the CPU: JAX never enters the process."""
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import importlib, sys, numpy as np, torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import godot_whisper_tpu_torch as gt\n"
+        "from godot_whisper_tpu_torch.parallel.batch import "
+        "BatchTranscriber\n"
+        "from godot_whisper_tpu_torch.runtime.streaming import "
+        "StreamingTranscriber\n"
+        "from godot_whisper_tpu_torch.cli.serve import TranscriptionServer\n"
+        "cfg = gt.get_config('tiny.en').replace(n_audio_layer=1, "
+        "n_text_layer=1, n_audio_state=64, n_audio_head=2, "
+        "n_text_state=64, n_text_head=2)\n"
+        "ctx = gt.WhisperContext.from_params(cfg, gt.init_params(cfg, "
+        "compute_dtype=torch.float32, device='cpu'), device='cpu')\n"
+        "p = gt.TranscribeParams(best_of=1, temperature_inc=0.0)\n"
+        "x = (0.2 * np.sin(np.arange(24000) * 0.05)).astype(np.float32)\n"
+        "BatchTranscriber(ctx).transcribe([x, x[:20000]], p)\n"
+        "ctx.full_parallel(p, x, 2)\n"
+        "st = StreamingTranscriber(ctx)\n"
+        "st.push_audio(x)\n"
+        "st.process_once()\n"
+        "TranscriptionServer(ctx, batch_window_ms=10).close()\n"
+        "print('jax' in sys.modules, 'godot_whisper_tpu' in sys.modules)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(PORT.parent) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=600, cwd=str(PORT.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"], out.stdout
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "profile_torch_main_path.py"])
 def test_chip_scripts_refuse_without_cuda(script):
