@@ -10,26 +10,22 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    ptxas's register / spill lines.
 2. kernels -- each kernel against its plain PyTorch version on the card,
    at the tiny.en main-path shapes and at large-v3 widths, with the
-   tolerance stated; then times of kernel, plain version and, where one
-   exists, a single PyTorch library call computing the same function (a
-   yardstick only; the port never calls it): CUDA events around one call
-   (median; the wrapper's host time included) and, for the kernel and the
-   library call, the device time of the call captured in a CUDA graph and
-   replayed.  K1 (the DFT in split TF32 on the tensor cores) is held to
+   tolerance stated (their times come from phase 14 (d)).  K1 (the DFT in split TF32 on the tensor cores) is held to
    an f64 result within 1.5x the plain f32 version's own error, and a
    one-pass TF32 control must exceed that limit.  The split-cache decode
    attentions (K3/K4, K7) are also
    checked at their edge cases (step 0, a row that attends only the
    current token, kv_group 8 at large-v3 widths, capacities the slices do
-   not divide) and for bitwise-equal results from call to call.
+   not divide, K3 over the host-stepped decoder's contiguous cache) and
+   for bitwise-equal results from call to call.
    Beam search's kernels too: K6 filter + top-K, K7 split prompt / live
    attention (with a permuted row map) and K8 the bounded cache reorder
    (into a NaN-filled cache, then K3 over it).  And quantized decoding's:
    K9 int8 matmul in its three routes (io decode rows, oi logits rows
    on the tensor cores, the 1500-row io cross-K/V projection through
-   the pipelined tensor-core tile), each timed, K10 int4 matmul in its two
-   routes (decode rows, the 1500-row projection's tensor-core tile), each
-   timed, K11 / K12 int8 cross-attention (one cluster kernel: exact and
+   the pipelined tensor-core tile), K10 int4 matmul in its two
+   routes (decode rows, the 1500-row projection's tensor-core tile),
+   K11 / K12 int8 cross-attention (one cluster kernel: exact and
    W8A8, also where a CTA's slice holds no valid slot and at 256-slot
    blocks, and bitwise equal from call to call).  And the long-context encoder
    attention K13 at phase 10's shape and at large-v3 widths, f32 and
@@ -100,6 +96,28 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    SpeechToText.transcribe once; cli.stream --mic --capture-backend
    synthetic for 3 s on the port's native ring (built with g++ into
    godot_whisper_tpu_torch/_build/).
+14. host-stepped decode and tools -- (a) nano-3 f32 (numpy seed 3, TF32
+   off) on 34 s, TranscribeParams(best_of=1, temperature_inc=0.0, the
+   entropy and logprob gates open) with an identity
+   logits_filter_callback: the tokens of the same params without it (at
+   least 20); K3 launches (one row), K5 does not.  (b) tiny.en bf16,
+   default params, a callback that bans the first text token of the plain
+   run: the token never appears, K1, K2 and K3 launch; then two windows of
+   201 tokens (end-of-text banned too, no timestamps, max_tokens 200):
+   host ms by stage printed, per token and, for the prompt pass, per
+   attempt.  (c) tiny.en bf16 under the grammar "root ::= [a-z ]+"
+   (no_timestamps, temperature_inc 0, max_tokens 16, 5 s): every output
+   character a-z or space; per-token grammar ms printed; then with a
+   callback masking the ids the grammar exempts, max_tokens 8: a
+   non-empty text of a-z and space.  (d) in-process, on a WAV and a
+   transcript written to a temporary directory (a nano-3 checkpoint whose
+   windows end after a token or two): cli.command --use-grammar must hear
+   a prefix of one of its commands, and without the grammar (the
+   control) a text that is none; cli.eval prints a WER; cli.bench --what
+   kernels gives 13 lines, each roofline_frac <= 1.05, whose times (with
+   K9's and K10's other routes timed the same way) fill the kernels
+   line; --what e2e gives one JSON line.  Counters zeroed just before
+   each run; the phase's seconds printed.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -120,12 +138,7 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_BF16 = 989e12            # dense tensor-core bf16
-PEAK_TF32 = 495e12            # dense tensor-core TF32
-PEAK_F32 = 67e12              # f32 outside the tensor cores
 TPU_OPS = "godot_whisper_tpu/ops/"
-GRAPH_CALLS = 10              # calls of a kernel per timed CUDA graph
 
 
 def log(*a):
@@ -135,71 +148,6 @@ def log(*a):
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     sys.exit(1)
-
-
-def bound(n_bytes: float, n_ops: float, peak: float):
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / peak
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
-
-def time_ms(torch, fn, reps: int = 30) -> float:
-    """Median of per-call CUDA-event times after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def graph_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one call: GRAPH_CALLS calls of ``fn`` captured back
-    to back in one CUDA graph, replayed ``reps`` times between two events,
-    divided by reps * GRAPH_CALLS.  Unlike ``time_ms`` it leaves out the
-    host's time to enqueue the call (a ctypes wrapper's or PyTorch's
-    dispatch), which a short kernel's event time includes; with several
-    calls per graph a kernel shorter than one graph launch on the host
-    (about 6 us) is not timed at the host's launch rate."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        g.replay()
-    b.record()
-    b.synchronize()
-    del g
-    return a.elapsed_time(b) / (reps * GRAPH_CALLS)
-
-
-def timed(torch, fn, lib=None, reps: int = 30) -> dict:
-    """Event time (``time_ms``) and CUDA-graph device time (``graph_ms``)
-    of a kernel wrapper ``fn`` and, where one exists, of ``lib``, one
-    PyTorch call computing the same function (a yardstick only)."""
-    r = dict(ms=time_ms(torch, fn, reps), device_ms=graph_ms(torch, fn),
-             library_ms=None, library_device_ms=None)
-    if lib is not None:
-        r.update(library_ms=time_ms(torch, lib, reps),
-                 library_device_ms=graph_ms(torch, lib))
-    return r
 
 
 def tf32_round(torch, x):
@@ -236,17 +184,6 @@ def mel_limit(e_plain: float) -> float:
     tensor-core order of summation moves quiet bins by more than 1e-4 from
     the plain version while staying closer to the f64 result."""
     return max(1e-4, 1.5 * e_plain)
-
-
-def mel_bound(n_bytes: float, n_frames: int, nnz: int):
-    """K1's bound (ms, what bounds it): the larger of the bytes over HBM's
-    rate, the DFT product (2 F 400 402 operations, counted once: the split
-    route's second pass only recovers f32 accuracy) over the tensor cores'
-    TF32 rate, and the power (3 x 201 a frame) and the sparse filterbank
-    (2 nnz a frame) over the f32 rate."""
-    b_ms, by = bound(n_bytes, 2 * n_frames * 400 * 402, PEAK_TF32)
-    f32_ms = n_frames * (3 * 201 + 2 * nnz) / PEAK_F32 * 1e3
-    return (b_ms, by) if b_ms >= f32_ms else (f32_ms, "operations")
 
 
 def blocked_bf16_limit(torch, q, k, v, want, t_valid=None):
@@ -446,7 +383,7 @@ def golden_audio_5s() -> np.ndarray:
 # --------------------------------------------------------------- phase 2 --
 def check_kernels(torch, gt, rng, ptx_logs):
     """Kernel vs plain version at the main-path and large-v3 shapes.
-    Returns per-kernel records (max error, timings, bound)."""
+    Returns each timed kernel's max error against its plain version."""
     from godot_whisper_tpu_torch.audio.mel import frame_counts, pad_audio
     from godot_whisper_tpu_torch.ops import attention as A
     from godot_whisper_tpu_torch.ops import filter_sample as FS
@@ -508,14 +445,7 @@ def check_kernels(torch, gt, rng, ptx_logs):
             fail("K1 mel limit cannot tell a one-pass TF32 DFT from split "
                  "TF32")
         if tag == "tiny.en":
-            f = got.shape[2]
-            nbytes = sum(t.numel() * t.element_size() for t in (
-                a16, tables.frag_basis, tables.runs, tables.weights, got))
-            recs["mel"] = dict(
-                err=e_max, bound=mel_bound(nbytes, f, int((filt != 0).sum())),
-                plain_ms=time_ms(torch, lambda: M.log_mel_raw_plain(
-                    a16, basis, filt)),
-                **timed(torch, lambda: M.log_mel_raw(a16, tables)))
+            recs["mel"] = e_max
 
     # ---- K2 encoder attention: (B*H, 1536, 64), t_valid 1500.  In bf16
     # the tensor-core kernel computes _flash_sp_kernel's single-pass
@@ -562,30 +492,7 @@ def check_kernels(torch, gt, rng, ptx_logs):
         if not ef < 2e-4:
             fail("K2 f32 disagrees with its plain version")
         if tag == "tiny.en":
-            mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
-            q4, k4, v4 = (x.view(1, bh, 1536, 64) for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            ops = 4 * bh * 1536 * 1500 * 64
-            nbytes = 4 * bh * 1536 * 64 * 2
-            recs["enc_attn"] = dict(
-                err=e_max, bound=bound(nbytes, ops, PEAK_BF16),
-                ms=time_ms(torch, lambda: A.flash_attention_bh(
-                    q, k, v, t_valid=1500)),
-                plain_ms=time_ms(torch, lambda: A.attention_bh_sp_plain(
-                    q, k, v, 1500)),
-                library_ms=time_ms(torch, lambda: sdpa(q4, k4, v4,
-                                                       attn_mask=mask)))
-            r = recs["enc_attn"]
-            r["device_ms"] = graph_ms(torch, lambda: A.flash_attention_bh(
-                q, k, v, t_valid=1500))
-            r["library_device_ms"] = graph_ms(
-                torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
-            log(f"  timed bf16: kernel {r['ms']:.4f} ms, bound "
-                f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
-                f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
-                f"device time (CUDA graph replay): kernel "
-                f"{r['device_ms']:.4f} ms, SDPA "
-                f"{r['library_device_ms']:.4f} ms")
+            recs["enc_attn"] = e_max
 
     # ---- K5 filter + sample: 5 rows of raw logits; argmax and sampling
     # rows, initial and mid-sequence timestamp states
@@ -621,18 +528,7 @@ def check_kernels(torch, gt, rng, ptx_logs):
         if tok_bad or not worst < 1e-5:
             fail("K5 filter+sample disagrees with its plain version")
         if name == "tiny.en":
-            kw = dict(temperature=0.0, seed=0, eot=cfg.token_eot, beg=beg,
-                      space_id=220, max_initial_tid=50, suppress_blank=True,
-                      no_timestamps=False)
-            nbytes = 5 * V * 4 + V + state.numel() * 4 + 5 * 6 * 4
-            ops = 5 * V * 30
-            recs["filter_sample"] = dict(
-                err=worst, bound=bound(nbytes, ops, PEAK_F32),
-                plain_ms=time_ms(torch, lambda:
-                                 FS.fused_filter_sample_plain(
-                                     logits, sup, state, **kw)),
-                **timed(torch, lambda: FS.fused_filter_sample(
-                    logits, sup, state, **kw)))
+            recs["filter_sample"] = worst
     # the edge rows (filter_edge_case) at every vocabulary width and batch
     # the path gives K5, a small V, and B 40 = 8 streams of 5 rows
     for V, B in ((51864, 1), (51864, 5), (51864, 40), (51866, 8), (1000, 5)):
@@ -651,8 +547,7 @@ def check_kernels(torch, gt, rng, ptx_logs):
 
 def check_beam_kernels(torch, rng):
     """K6 and K8 against their plain versions at the tiny.en beam path's
-    shapes and large-v3 widths; then their times (K7 is
-    ``check_split_attention``'s)."""
+    shapes and large-v3 widths (K7 is ``check_split_attention``'s)."""
     from godot_whisper_tpu_torch.models.config import get_config
     from godot_whisper_tpu_torch.ops import decode_attention as D
     from godot_whisper_tpu_torch.ops import filter_sample as FS
@@ -703,14 +598,7 @@ def check_beam_kernels(torch, rng):
                 or got.ids[3, :3].tolist() != [17, 900, 20000]):
             fail("K6 filter+top-K disagrees with its plain version")
         if name == "tiny.en":
-            nbytes = 5 * V * 4 + V + state.numel() * 4 + 5 * (3 * 5 + 3) * 4
-            ops = 5 * V * (30 + 2 * 5)
-            recs["filter_topk"] = dict(
-                err=worst, bound=bound(nbytes, ops, PEAK_F32),
-                plain_ms=time_ms(torch, lambda: FS.fused_filter_topk_plain(
-                    logits, sup, state, **kw)),
-                **timed(torch, lambda: FS.fused_filter_topk(
-                    logits, sup, state, **kw)))
+            recs["filter_topk"] = worst
     # the edge rows (filter_edge_case): the beam path's K at each width, a
     # small V, B 40 = 8 streams of 5 beams; the few-live row runs out of
     # live ids
@@ -756,15 +644,7 @@ def check_beam_kernels(torch, rng):
         if not (exact and finite and e3 < 1e-4):
             fail(f"K8 reorder [{tag}] disagrees with index_select")
         if tag.startswith("large-v3"):
-            nbytes = 2 * 2 * L * B * hi * S * 2 + B * 4
-            recs["kv_reorder"] = dict(
-                err=0.0, bound=bound(nbytes, 0, PEAK_BF16),
-                plain_ms=time_ms(torch, lambda: R.reorder_kv_live_plain(
-                    k, v, src, hi)),
-                **timed(torch, lambda: R.reorder_kv_live(
-                    k, v, src, hi, out=out), lambda: (
-                        torch.index_select(k, 1, src),
-                        torch.index_select(v, 1, src))))
+            recs["kv_reorder"] = 0.0
     return recs
 
 
@@ -773,16 +653,16 @@ def check_decode_attention(torch, rng, ptx_logs):
     cross shapes, at large-v3 widths and at the split-cache edge cases:
     step 0, a row whose only valid slot is the current token, kv_group 8 at
     large-v3 widths (8 x 20 = 160 lanes), a C that the slices do not
-    divide.  Two calls must give bitwise-equal outputs (the merge runs in
-    split order).  Then event and CUDA-graph device times of K3 and K4 at
-    the main path's shapes, and of K4 at large-v3 widths, beside SDPA's
-    with a boolean key mask (a yardstick; the port never calls it)."""
+    divide, and the host-stepped decoder's contiguous cache (one row,
+    split 0, lo 0, hi = slot + 1: one region; the slots past hi hold the
+    prompt pass's padding rows) at its first step and near the end of a
+    window.  Two calls must give bitwise-equal outputs (the merge runs in
+    split order)."""
     from godot_whisper_tpu_torch.ops import decode_attention as D
     from godot_whisper_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     n_sms = K.sm_count(torch.cuda.current_device())
     log_ptxas(ptx_logs, "decode_attn", "decode_split_kernel", dynamic=False)
 
@@ -813,7 +693,7 @@ def check_decode_attention(torch, rng, ptx_logs):
                  "version")
         if not same:
             fail(f"decode attention [{name}] is not bitwise repeatable")
-        return dict(q=q, k=k, v=v, lo=lo, hi=hi, kw=kw, err=e_max)
+        return e_max
 
     # tiny.en main path: prompt capacity 232, cache 512 slots, step 100
     k3 = case("tiny.en self, step 100", 384, 6, 5, 1, 512, 4, [1] * 5, 232,
@@ -821,8 +701,7 @@ def check_decode_attention(torch, rng, ptx_logs):
     k4 = case("tiny.en cross", 384, 6, 5, 5, 1536, 4, [1500] * 5, 1536, 0, 3)
     case("tiny.en cross kv_group 1", 384, 6, 1, 1, 1536, 4, [1500], 1536, 0,
          1)
-    wide = case("large-v3 cross", 1280, 20, 5, 5, 1536, 2, [1500] * 5, 1536,
-                0, 1)
+    case("large-v3 cross", 1280, 20, 5, 5, 1536, 2, [1500] * 5, 1536, 0, 1)
     case("large-v3 self", 1280, 20, 5, 1, 512, 2, [3, 5, 7, 9, 11], 232, 300,
          1)
     case("tiny.en self, step 0", 384, 6, 5, 1, 512, 4, [1] * 5, 232, 233, 2)
@@ -832,50 +711,11 @@ def check_decode_attention(torch, rng, ptx_logs):
          [1500] * 8, 1536, 0, 1)
     case("tiny.en cross, C 1000 (the slices do not divide C)", 384, 6, 5, 5,
          1000, 2, [990] * 5, 1000, 0, 1)
-
-    def library(c):
-        q, k, v, lo, hi, kw = (c[n] for n in ("q", "k", "v", "lo", "hi",
-                                              "kw"))
-        B, S = q.shape
-        H, kvg, layer = kw["n_head"], kw["kv_group"], kw["layer"]
-        C, dh = k.shape[2], S // H
-        ql = q.view(B, H, 1, dh)
-        kl = k[layer].view(-1, C, H, dh).transpose(1, 2)
-        vl = v[layer].view(-1, C, H, dh).transpose(1, 2)
-        if kvg > 1:
-            kl = kl.expand(B, H, C, dh)
-            vl = vl.expand(B, H, C, dh)
-        slot = torch.arange(C, device=dev)
-        mask = ((slot[None] < lo[:, None])
-                | ((slot[None] >= kw["split"]) & (slot[None] < hi)))
-        mask = mask[:, None, None, :]
-        return lambda: sdpa(ql, kl, vl, attn_mask=mask)
-
-    recs = {}
-    # slots each query row attends (operations) and K/V slots read (bytes)
-    for key, c, row_slots, kv_slots in (
-            ("decode_attn_k3", k3, 5 * 102, 5 * 102),
-            ("decode_attn_k4", k4, 5 * 1500, 1500),
-            ("large-v3 cross", wide, 5 * 1500, 1500)):
-        B, S = c["q"].shape
-        nbytes = 2 * kv_slots * S * 2 + B * S * 2 + B * S * 4
-        ops = 4 * row_slots * S
-
-        def run(c=c):
-            return D.decode_attention(c["q"], c["k"], c["v"], c["lo"],
-                                      c["hi"], **c["kw"])
-        r = dict(err=c["err"], bound=bound(nbytes, ops, PEAK_BF16),
-                 plain_ms=time_ms(torch, lambda c=c: D.decode_attention_plain(
-                     c["q"], c["k"], c["v"], c["lo"], c["hi"], **c["kw"])),
-                 **timed(torch, run, library(c)))
-        log(f"  timed [{key}]: kernel {r['ms']:.4f} ms, device "
-            f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
-            f"({r['bound'][1]}, {r['bound'][0] / r['device_ms']:.3f} of the "
-            f"device time); SDPA {r['library_ms']:.4f} ms, device "
-            f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
-        if key.startswith("decode_attn"):
-            recs[key] = r
-    return recs
+    case("tiny.en self, host path contiguous, step 0", 384, 6, 1, 1, 512, 4,
+         [0], 0, 4, 2)
+    case("tiny.en self, host path contiguous, step 226", 384, 6, 1, 1, 512,
+         4, [0], 0, 230, 2)
+    return {"decode_attn_k3": k3, "decode_attn_k4": k4}
 
 
 def check_split_attention(torch, rng, ptx_logs):
@@ -884,15 +724,12 @@ def check_split_attention(torch, rng, ptx_logs):
     a permuted row map) and at the split-cache edge cases: the live cache
     at step 0 with two beams whose prompts are empty (their only valid
     slot is the current token), kv_group 8 at large-v3 widths, capacities
-    the slices do not divide.  Two calls must give bitwise-equal outputs.
-    Then event and device times at both widths beside SDPA's over the same
-    keys gathered into one cache per beam beforehand (a yardstick)."""
+    the slices do not divide.  Two calls must give bitwise-equal outputs."""
     from godot_whisper_tpu_torch.ops import kernels as K
     from godot_whisper_tpu_torch.ops import split_attention as SA
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     n_sms = K.sm_count(torch.cuda.current_device())
     log_ptxas(ptx_logs, "split_attn", "split_beam_kernel", dynamic=False)
 
@@ -930,12 +767,10 @@ def check_split_attention(torch, rng, ptx_logs):
                  "version")
         if not same:
             fail(f"K7 split attention [{name}] is not bitwise repeatable")
-        return dict(q=q, kp=kp, vp=vp, kl=kl, vl=vl, lo=lo, kw=kw,
-                    hi_live=hi_live, err=e_max)
+        return e_max
 
     tiny = case("tiny.en beam 5", 384, 6, 4, 1, 5, 256, 256, [120] * 5, 100)
-    wide = case("large-v3 beam 5", 1280, 20, 2, 1, 5, 256, 256, [120] * 5,
-                100)
+    case("large-v3 beam 5", 1280, 20, 2, 1, 5, 256, 256, [120] * 5, 100)
     case("tiny.en, live step 0, beams 0-1 with empty prompts", 384, 6, 4, 1,
          5, 256, 256, [0, 0, 120, 120, 120], 1)
     case("large-v3 beam 8 (160 lanes)", 1280, 20, 2, 1, 8, 256, 256,
@@ -943,52 +778,12 @@ def check_split_attention(torch, rng, ptx_logs):
     case("tiny.en, 2 groups, CP 232 and NL 200 (the slices do not divide "
          "them)", 384, 6, 2, 2, 5, 232, 200, [100] * 5 + [37] * 5, 150)
 
-    recs = {}
-    for tag, c in (("tiny.en", tiny), ("large-v3", wide)):
-        q, kp, vp, kl, vl, lo, kw, hi_live = (c[n] for n in (
-            "q", "kp", "vp", "kl", "vl", "lo", "kw", "hi_live"))
-        B, S = q.shape
-        G, KB, H, layer = 1, kw["kv_group"], kw["n_head"], kw["layer"]
-        lo_v = int(lo[0])
-        # the same keys gathered into one cache per beam: the library
-        # yardstick's input (built outside its timing)
-        rows = (torch.arange(B, device=dev)[:, None] // KB * KB
-                + kw["rowmap"][:, :hi_live].long())
-        t = torch.arange(hi_live, device=dev)[None]
-        dh = S // H
-
-        def heads(p_, l_):
-            full = torch.cat([p_[layer, :, :lo_v].expand(B, lo_v, S),
-                              l_[layer][rows, t]], dim=1)
-            return full.view(B, -1, H, dh).transpose(1, 2).contiguous()
-        kf, vf = heads(kp, kl), heads(vp, vl)
-        qf = q.view(B, H, 1, dh)
-        nbytes = (2 * G * lo_v * S * 2 + 2 * B * hi_live * S * 2
-                  + B * S * 2 + B * S * 4 + B * hi_live * 4 + B * 4)
-        ops = 4 * B * (lo_v + hi_live) * S
-        r = dict(err=c["err"], bound=bound(nbytes, ops, PEAK_BF16),
-                 plain_ms=time_ms(torch, lambda: SA.split_beam_attention_plain(
-                     q, kp, vp, kl, vl, lo, hi_live, **kw)),
-                 **timed(torch, lambda: SA.split_beam_attention(
-                     q, kp, vp, kl, vl, lo, hi_live, **kw),
-                     lambda: sdpa(qf, kf, vf)))
-        log(f"  timed [K7 {tag}]: kernel {r['ms']:.4f} ms, device "
-            f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
-            f"({r['bound'][1]}, {r['bound'][0] / r['device_ms']:.3f} of the "
-            f"device time); SDPA over the gathered keys {r['library_ms']:.4f}"
-            f" ms, device {r['library_device_ms']:.4f} ms; plain "
-            f"{r['plain_ms']:.4f} ms")
-        if tag == "tiny.en":
-            recs["split_attn"] = r
-    return recs
+    return {"split_attn": tiny}
 
 
 def check_quant_kernels(torch, rng):
     """K9-K12 against their plain versions at the quantized paths' shapes
-    (tiny.en and large-v3 widths); then their times.  The library yardstick
-    of K9 / K10 is torch.mm on the weight already held in bf16 (the bf16
-    model's cost, which quantization aims to beat); of K11 / K12 SDPA over
-    K/V dequantized beforehand.  The port calls neither."""
+    (tiny.en and large-v3 widths)."""
     from godot_whisper_tpu_torch.models.model import (CrossKV,
                                                       quantize_cross_kv)
     from godot_whisper_tpu_torch.ops import cross_attention as CA
@@ -996,7 +791,6 @@ def check_quant_kernels(torch, rng):
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     recs = {}
 
     def tens(*shape, dtype=torch.float32, scale=1.0):
@@ -1017,7 +811,6 @@ def check_quant_kernels(torch, rng):
 
             def plain():
                 return Q.quant_matmul4_plain(x, qt)
-            w_bytes = s * o // 2 + (s // qt.group) * o * 4
         else:
             qt = (Q.quantize_tensor(w.t().contiguous(), reduce_axis=1)
                   if layout == "oi" else Q.quantize_tensor(w, reduce_axis=0))
@@ -1029,7 +822,6 @@ def check_quant_kernels(torch, rng):
 
             def plain():
                 return Q.quant_matmul_plain(x, qt, layout=layout)
-            w_bytes = s * o + o * 4
         kname = "K10" if kind == "int4" else "K9"
         got = run()
         sync()
@@ -1044,19 +836,7 @@ def check_quant_kernels(torch, rng):
         if not share <= 1.0:
             fail(f"{kname} [{tag}] disagrees with its plain version")
         if key:
-            w_bf16 = w_deq.to(torch.bfloat16)
-            nbytes = w_bytes + m * s * 2 + m * o * 4
-            r = recs[key] = dict(
-                err=e_max, bound=bound(nbytes, 2 * m * s * o, PEAK_BF16),
-                plain_ms=time_ms(torch, plain),
-                **timed(torch, run, lambda: torch.mm(
-                    x, w_bf16, out_dtype=torch.float32)))
-            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us (device "
-                f"{r['device_ms'] * 1e3:.2f} us), bound "
-                f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
-                f"plain {r['plain_ms'] * 1e3:.2f} us, torch.mm on bf16 W "
-                f"{r['library_ms'] * 1e3:.2f} us (device "
-                f"{r['library_device_ms'] * 1e3:.2f} us)")
+            recs[key] = e_max
 
     qmm_case("int8", "oi", 5, 384, 51864, "tiny.en logits", "qmatmul")
     qmm_case("int8", "io", 5, 384, 1152, "tiny.en wqkv", "qmatmul_io")
@@ -1113,33 +893,7 @@ def check_quant_kernels(torch, rng):
         if not share <= 1.0:
             fail(f"{kname} [{tag}] disagrees with its plain version")
         if key:
-            d = s // h
-            kf = (x.k_q[-1, 0].float().view(1536, h, d)
-                  * x.k_s[-1, 0, :, :h].float()[..., None])
-            vf = (x.v_q[-1, 0].float().view(1536, h, d)
-                  * x.v_s[-1, 0, :h, None])
-            kd = kf.to(torch.bfloat16).transpose(0, 1)[None].expand(
-                kg, h, 1536, d)
-            vd = vf.to(torch.bfloat16).transpose(0, 1)[None].expand(
-                kg, h, 1536, d)
-            qd = q.view(kg, h, 1, d)
-            mask = (torch.arange(1536, device=dev) < 1500)[None, None, None]
-            # int8 K/V and the n_head bf16 k_s of the 1500 valid slots, the
-            # n_head f32 v_s, q and lo in, f32 out (the zero lanes of the
-            # padded scales are not needed)
-            nbytes = (2 * 1500 * s + 1500 * h * 2 + h * 4
-                      + kg * s * 2 + kg * s * 4 + kg * 4)
-            r = recs[key] = dict(
-                err=e_max, bound=bound(nbytes, 4 * kg * 1500 * s, PEAK_BF16),
-                plain_ms=time_ms(torch, plain),
-                **timed(torch, run, lambda: sdpa(qd, kd, vd,
-                                                 attn_mask=mask)))
-            log(f"  timed: kernel {r['ms'] * 1e3:.2f} us (device "
-                f"{r['device_ms'] * 1e3:.2f} us), bound "
-                f"{r['bound'][0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB), "
-                f"plain {r['plain_ms'] * 1e3:.2f} us, SDPA over dequantized "
-                f"bf16 K/V {r['library_ms'] * 1e3:.2f} us (device "
-                f"{r['library_device_ms'] * 1e3:.2f} us)")
+            recs[key] = e_max
 
     xattn_case(384, 6, 5, 4, True, "tiny.en kv_group 5", "xattn_packed")
     xattn_case(384, 6, 5, 4, False, "tiny.en kv_group 5")
@@ -1159,13 +913,11 @@ def check_long_attention(torch, rng, ptx_logs):
     """K13 against its plain version (the same 512-key blocks and rounding
     points) at phase 10's shape (tiny.en, n_audio_ctx 2000 padded to 2048)
     and at large-v3 widths (20 heads; 160 = batch 8 x 20 heads), f32 and
-    bf16; then times of kernel, plain version and one SDPA call with a
-    boolean key mask (a yardstick; the port never calls it)."""
+    bf16."""
     from godot_whisper_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     recs = {}
     T, D = 2048, 64
     log_ptxas(ptx_logs, "enc_attn_long", "enc_attn_tc_kernel")
@@ -1201,23 +953,8 @@ def check_long_attention(torch, rng, ptx_logs):
         if ctl <= 1.0:
             fail(f"K13 [{tag}]: the bf16 tol does not tell the blocked "
                  "function from the single-pass one")
-        mask = (torch.arange(T, device=dev) < tv)[None, None, None]
-        q4, k4, v4 = (x.view(1, bh, T, D) for x in (q, k, v))
-        r = dict(err=e_max,
-                 bound=bound(4 * bh * T * D * 2, 4 * bh * tv * tv * D,
-                             PEAK_BF16),
-                 plain_ms=time_ms(torch, lambda: A.attention_bh_blocked_plain(
-                     q, k, v, tv), reps=10),
-                 **timed(torch, lambda: A.flash_attention_long(
-                     q, k, v, t_valid=tv), lambda: sdpa(
-                         q4, k4, v4, attn_mask=mask), reps=10))
-        log(f"  timed bf16: kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), plain "
-            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
-            f"device time (CUDA graph replay): kernel {r['device_ms']:.4f} "
-            f"ms, SDPA {r['library_device_ms']:.4f} ms")
         if bh == 6:
-            recs["enc_attn_long"] = r
+            recs["enc_attn_long"] = e_max
         del qf, kf, vf, q, k, v, got, want, err, lim
         torch.cuda.empty_cache()
     return recs
@@ -1817,6 +1554,232 @@ def check_streaming(torch, gt, ctx, zero, read):
     return p50, p95
 
 
+# --------------------------------------------------------------- phase 14 --
+def stage_ms(hd) -> str:
+    """The host-stepped decoder's host ms by stage since its last
+    ``reset_stats`` (``HostWindowDecoder.stage_s``): the prompt stage per
+    attempt, the others per token (the step's time is its enqueue, the
+    device's share of the step lands in the pull)."""
+    n = max(hd.n_tokens, 1)
+    per_token = {k: v for k, v in hd.stage_s.items() if k != "prompt"}
+    parts = ", ".join(f"{k} {v * 1e3 / n:.3f}"
+                      for k, v in sorted(per_token.items()))
+    total = sum(per_token.values()) * 1e3 / n
+    prompt = hd.stage_s["prompt"] * 1e3 / max(hd.n_attempts, 1)
+    return (f"{hd.n_tokens} tokens, per token ms: {parts} (total "
+            f"{total:.3f}); {hd.n_attempts} attempts, prompt {prompt:.3f} "
+            "ms each")
+
+
+def run_tool(main, argv):
+    """A CLI's main in-process with its stdout captured (and echoed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return rc, out
+
+
+def check_host_path(torch, gt, zero, read, tmp):
+    """Phase 14: the host-stepped decoder (logits_filter_callback and GBNF
+    grammar) and the tools (command, eval, bench) in-process.  Returns the
+    kernels' times by key (``cli.bench.time_case``'s columns)."""
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.audio.tokenizer import synthetic_vocab
+    from godot_whisper_tpu_torch.audio.wav import write_wav
+    from godot_whisper_tpu_torch.cli import bench as cli_bench
+    from godot_whisper_tpu_torch.cli import command as cli_command
+    from godot_whisper_tpu_torch.cli import eval as cli_eval
+    from godot_whisper_tpu_torch.models import loader_ggml
+    from godot_whisper_tpu_torch.models.export_ggml import export_checkpoint
+
+    t_phase = time.perf_counter()
+
+    def ids(segs):
+        return [t.id for s in segs for t in s.tokens]
+
+    def identity(tokens, logits):
+        return None
+
+    # (a) nano-3 f32 (3 text layers: 2 mark a model distilled, whose
+    # windows never end without timestamps at random weights) on 34 s, two
+    # windows of text and timestamp tokens: an identity callback moves the
+    # decode to the host path (K3 on one row, the plain filters, no K5),
+    # not its tokens
+    nano = nano3(torch, gt)
+    clip = frozen_audio(34.0)
+    plain = nano.full(gt.TranscribeParams(**GREEDY_OPEN), clip)
+    zero(nano)
+    hooked = nano.full(gt.TranscribeParams(logits_filter_callback=identity,
+                                           **GREEDY_OPEN), clip)
+    n, grp = read()
+    log(f"host path (a) nano-3 f32 on 34 s, identity callback: "
+        f"{len(ids(hooked))} tokens, equal to the clip path's "
+        f"{ids(hooked) == ids(plain)}; launches {n}, decode_attention by "
+        f"kv_group {grp}")
+    if len(ids(plain)) < 20 or ids(hooked) != ids(plain):
+        fail("the identity callback changed nano's tokens, or the clip "
+             "path gave fewer than 20 to compare")
+    if not (n["decode_attention"] and set(grp) == {1}) \
+            or n["fused_filter_sample"]:
+        fail("the host path did not run K3 on one row, or ran K5")
+    del nano
+
+    # (b) tiny.en bf16, default params, a callback that bans the first text
+    # token the clip path emits
+    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0)
+    audio = frozen_audio(5.0)
+    eot = ctx.config.token_eot
+    first = [t for t in ids(ctx.full(gt.TranscribeParams(), audio))
+             if t < eot]
+    banned = first[0] if first else 220
+
+    def ban(tokens, logits):
+        logits[banned] = -np.inf
+
+    hd = ctx.pipeline.host_decoder(gt.TranscribeParams())
+    zero(ctx)
+    t0 = time.perf_counter()
+    segs = ctx.full(gt.TranscribeParams(logits_filter_callback=ban), audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, grp = read()
+    log(f"host path (b) tiny.en bf16, default params, token {banned} "
+        f"banned: {len(segs)} segments, {len(ids(segs))} tokens, wall "
+        f"{wall:.3f} s, launches {n}, decode_attention by kv_group {grp}")
+    if banned in ids(segs):
+        fail("the banned token was emitted")
+    if not (n["log_mel_raw"] and n["flash_attention_bh"]
+            and grp.get(1)) or n["fused_filter_sample"]:
+        fail("the callback path did not run K1, K2 and K3, or ran K5")
+    # the per-token split over two windows of 201 tokens each: the same
+    # callback also bans end-of-text, no timestamps, max_tokens 200 (each
+    # window ends at its 201st token)
+    def ban_eot(tokens, logits):
+        logits[banned] = -np.inf
+        logits[eot] = -np.inf
+
+    hd.reset_stats()
+    long_p = gt.TranscribeParams(no_timestamps=True, max_tokens=200,
+                                 logits_filter_callback=ban_eot,
+                                 **GREEDY_OPEN)
+    t0 = time.perf_counter()
+    n_long = sum(len(ids(ctx.full(long_p, audio))) for _ in range(2))
+    wall = time.perf_counter() - t0
+    log(f"host path (b) per-token split, {n_long} tokens in 2 windows, wall "
+        f"{wall:.3f} s: {stage_ms(hd)}")
+    if hd.n_tokens < 400:
+        fail("the long host-stepped decode ran fewer than 400 tokens")
+
+    # (c) tiny.en bf16 under the grammar [a-z ]+
+    hd.reset_stats()
+    zero(ctx)
+    t0 = time.perf_counter()
+    segs = ctx.full(gt.TranscribeParams(
+        grammar_rules="root ::= [a-z ]+\n", no_timestamps=True,
+        temperature_inc=0.0, max_tokens=16), audio)
+    wall = time.perf_counter() - t0
+    n, _ = read()
+    text = "".join(s.text for s in segs)
+    log(f"host path (c) tiny.en bf16, grammar [a-z ]+, max_tokens 16: "
+        f"text {text!r}, wall {wall:.3f} s, launches {n}")
+    log(f"  {stage_ms(hd)}")
+    if not all(ch == " " or "a" <= ch <= "z" for ch in text):
+        fail("a character outside the grammar [a-z ] was emitted")
+    # the grammar exempts the specials between end-of-text and the first
+    # timestamp (their text starts with "[_") and never rejects the
+    # synthetic vocabulary's NUL byte token (code point 0 ends a string);
+    # random weights favour them, so the text above may be empty.  Masked
+    # by a callback, the grammar alone chooses among text tokens.
+    beg = ctx.config.token_beg
+
+    def text_only(tokens, logits):
+        logits[0] = -np.inf
+        logits[eot:beg] = -np.inf
+
+    segs = ctx.full(gt.TranscribeParams(
+        grammar_rules="root ::= [a-z ]+\n", no_timestamps=True,
+        temperature_inc=0.0, max_tokens=8,
+        logits_filter_callback=text_only), audio)
+    text = "".join(s.text for s in segs)
+    log(f"host path (c) with the specials masked, max_tokens 8: text "
+        f"{text!r}")
+    if not text or not all(ch == " " or "a" <= ch <= "z" for ch in text):
+        fail("the grammar [a-z ] did not shape the text")
+    del ctx
+
+    # (d) the tools in-process: command --use-grammar and eval on a nano-3
+    # checkpoint that ends a window after a token or two (the decoder's
+    # final LayerNorm gain at 30x, a +35 logit on end-of-text), then the
+    # bench's kernels and e2e modes
+    cfg3 = gt.get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=3, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano-3")
+    params = gt.init_params(cfg3, seed=3, compute_dtype=torch.float32,
+                            device="cuda")
+    ln, e = params["decoder"]["ln"], params["decoder"]["token_embed"][
+        cfg3.token_eot].float()
+    ln["g"] *= 30.0
+    ln["b"] += 35.0 * e / (e * e).sum()
+    path = os.path.join(tmp, "nano3-eot.bin")
+    export_checkpoint(path, params, cfg3, mel_filterbank(80),
+                      synthetic_vocab(cfg3), ttype=loader_ggml.GGML_TYPE_F32)
+    data = os.path.join(tmp, "eval")
+    os.makedirs(data)
+    wav = os.path.join(data, "utt.wav")
+    write_wav(wav, frozen_audio(3.0))
+    with open(os.path.join(data, "utt.txt"), "w") as f:
+        f.write("turn on the light")
+    # the grammar lets through only a prefix of one of its alternatives;
+    # without it, this checkpoint hears a token that is none (the control)
+    commands = ["turn on the light", "turn off the light", "stop"]
+
+    def heard(grammar):
+        rc, out = run_tool(cli_command.main, [
+            "-m", path, "--commands", ",".join(commands), "--file", wav]
+            + (["--use-grammar"] if grammar else []))
+        m = re.search(r"^heard: '(.*)'$", out, re.M)
+        if rc not in (0, 3) or m is None or "command:" not in out:
+            fail(f"cli.command failed (rc {rc})")
+        return m.group(1)
+
+    def in_grammar(text):
+        return any(c.startswith(text) for c in commands)
+    said, control = heard(True), heard(False)
+    log(f"cli.command: heard {said!r} with the grammar (a prefix of an "
+        f"alternative: {in_grammar(said)}), {control!r} without it")
+    if not in_grammar(said):
+        fail("cli.command --use-grammar heard text outside its grammar")
+    if in_grammar(control):
+        fail("cli.command's control run heard a grammar prefix: the check "
+             "cannot tell the grammar's effect")
+    rc, out = run_tool(cli_eval.main, ["-m", path, data])
+    if rc != 0 or "TOTAL WER" not in out:
+        fail(f"cli.eval failed (rc {rc})")
+    rc, out = run_tool(cli_bench.main, ["--what", "kernels"])
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    if rc != 0 or len(lines) != 13 or any(
+            not 0 < r["roofline_frac"] <= cli_bench.MAX_ROOFLINE_FRAC
+            for r in lines):
+        fail("cli.bench --what kernels did not give 13 lines within their "
+             "bounds")
+    # the kernels line's times: the bench's lines, and K9's and K10's
+    # other routes timed the same way
+    times = {r["key"]: r for r in lines}
+    for c in cli_bench.route_cases(torch.device("cuda")):
+        r = times[c.key] = cli_bench.time_case(c)
+        log(f"  timed [{c.name}]: {r}")
+    rc, out = run_tool(cli_bench.main, ["--what", "e2e"])
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    if rc != 0 or len(lines) != 1 or not (
+            lines[0]["value"] > 0 and lines[0]["device_decode_rtf"] > 0):
+        fail("cli.bench --what e2e did not give one JSON line")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -1855,14 +1818,14 @@ def main() -> int:
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 log(f"  [{name}] {line.strip()}")
 
-    # ---- phase 2: kernels vs plain versions
+    # ---- phase 2: kernels vs plain versions (their times: phase 14 (d))
     rng = np.random.default_rng(0)
-    recs = check_kernels(torch, gt, rng, logs)
-    recs.update(check_decode_attention(torch, rng, logs))
-    recs.update(check_beam_kernels(torch, rng))
-    recs.update(check_split_attention(torch, rng, logs))
-    recs.update(check_quant_kernels(torch, rng))
-    recs.update(check_long_attention(torch, rng, logs))
+    errs = check_kernels(torch, gt, rng, logs)
+    errs.update(check_decode_attention(torch, rng, logs))
+    errs.update(check_beam_kernels(torch, rng))
+    errs.update(check_split_attention(torch, rng, logs))
+    errs.update(check_quant_kernels(torch, rng))
+    errs.update(check_long_attention(torch, rng, logs))
 
     # ---- phase 3: goldens through the kernels
     check_goldens(torch, gt)
@@ -2006,6 +1969,9 @@ def main() -> int:
         check_server(torch, gt, bctx, zero, read, tmp)
         check_streaming(torch, gt, bctx, zero, read)
         del bctx
+
+        # ---- phase 14: host-stepped decode and the tools
+        times = check_host_path(torch, gt, zero, read, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2062,16 +2028,15 @@ def main() -> int:
                 "xattn_packed": n7["xattn_q_packed"],
                 "enc_attn_long": n10["flash_attention_long"]}
     out = []
-    for key, r in recs.items():
-        b_ms, b_by = r["bound"]
+    for key, err in errs.items():
+        r = times[key]
         out.append({"name": names[key][0], "route": "cuda",
                     "source": "godot_whisper_tpu_torch/csrc/" + names[key][1],
                     "replaces": TPU_OPS + tpu[key],
-                    "launches": n_launch[key], "max_abs_err": r["err"],
-                    "ms": r["ms"], "device_ms": r["device_ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": r["library_ms"],
-                    "library_device_ms": r["library_device_ms"]})
+                    "launches": n_launch[key], "max_abs_err": err,
+                    **{k: r[k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_device_ms")}})
     print(json.dumps({"kernels": out}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -57,7 +57,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..audio.resample import resample
     from ..audio.wav import read_wav
     from ..parallel.batch import BatchTranscriber
+    from ..runtime.cache import enable_compilation_cache
     from . import outputs
+    enable_compilation_cache()
 
     if args.synthetic:
         ctx = gwt.WhisperContext.synthetic(args.synthetic, device=args.device)

@@ -89,8 +89,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     import godot_whisper_tpu_torch as gwt
     from ..audio.resample import resample
     from ..audio.wav import read_wav
+    from ..runtime.cache import enable_compilation_cache
     from . import outputs
 
+    enable_compilation_cache()
     kw = dict(quantize=args.quantize, device=args.device)
     if args.synthetic:
         ctx = gwt.WhisperContext.synthetic(args.synthetic, **kw)

@@ -53,7 +53,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import godot_whisper_tpu_torch as gwt
+    from ..runtime.cache import enable_compilation_cache
     from ..runtime.streaming import StreamingConfig, StreamingTranscriber
+    enable_compilation_cache()
 
     if args.synthetic:
         ctx = gwt.WhisperContext.synthetic(args.synthetic,

@@ -8,9 +8,11 @@ Two paths, chosen as the JAX package chooses them:
   samplers above), sequence ranking with entropy / logprob gates,
   prompt_past conditioning and segment emission;
 - the per-window path (``_full_windows``) for ladders whose rungs mix
-  decoder counts (e.g. beam_size 8 with best_of 5) and for the progress,
-  encoder-begin and abort callbacks: one encode and one ``WindowDecoder``
-  call per (window, rung), each rung at its own width.
+  decoder counts (e.g. beam_size 8 with best_of 5), for the progress,
+  encoder-begin and abort callbacks, and for grammar rules and the
+  logit-filter callback: one encode and one ``WindowDecoder`` (or
+  ``HostWindowDecoder``) call per (window, rung), each rung at its own
+  width.
 
 ``TranscribeParams.cross_kv_int8`` quantizes each window's cross-KV to int8
 right after it is projected (``models.model.quantize_cross_kv``) on both
@@ -20,10 +22,10 @@ decode, a softmax over the language tokens); ``token_timestamps`` fills each
 token's t0/t1 from the kept samples' energy and ``max_len`` re-splits
 segments (``decode/timestamps.py``).  A mel set from outside (``set_mel``,
 or the streaming path's ``set_mel_device``) decodes through the whole-clip
-path as the pipeline's own does.  What the JAX package serves through its
-host-stepped decoder (grammar and the logit-filter callback) waits for a
-later slice; ``full`` raises NotImplementedError for it instead of ignoring
-it.
+path as the pipeline's own does.  Grammar rules and the logit-filter
+callback take the per-window path with the host-stepped decoder
+(``decode/host_loop.py``): one greedy or sampled row, one token at a time,
+the grammar re-initialised for every attempt.
 
 Timestamps are in the reference's centisecond units (t0/t1 are 10 ms ticks,
 token_beg + n <-> n * 20 ms).
@@ -48,6 +50,8 @@ from ..runtime.metrics import Timings
 from ..runtime.trace import tracer
 from .clip import ClipDecoder, ClipStatics, mel_windows
 from .filters import build_filter_context
+from .grammar import Grammar, grammar_from_gbnf
+from .host_loop import HostWindowDecoder
 from .language import detect_language_from_logits, lang_id, lang_str
 from .params import SamplingStrategy, TranscribeParams
 from .sequence import score_sequence
@@ -78,25 +82,32 @@ class Segment:
     speaker_turn_next: bool = False
 
 
-def _unsupported(tparams: TranscribeParams) -> Optional[str]:
-    """Why the port cannot run ``tparams`` yet (None when it can)."""
-    if tparams.grammar_rules is not None:
-        return "grammar-constrained decoding"
-    if tparams.logits_filter_callback is not None:
-        return "logits_filter_callback"
-    return None
-
-
 def _device_loop_eligible(tparams: TranscribeParams, temperatures) -> bool:
     """The whole-clip path runs a static n_dec rows per stream: every rung's
     decoder count must be 1 (padded to n_dec identical argmax rows, the
-    same result) or n_dec = max(counts); mixed widths and the per-window
-    callbacks take the per-window path (the JAX package's rule)."""
+    same result) or n_dec = max(counts); mixed widths, grammar rules, the
+    logit-filter callback and the per-window callbacks take the per-window
+    path (the JAX package's rule)."""
     counts = [tparams.n_decoders_at(t) for t in temperatures]
     return (all(c in (1, max(counts)) for c in counts)
+            and tparams.grammar_rules is None
+            and tparams.logits_filter_callback is None
             and tparams.progress_callback is None
             and tparams.encoder_begin_callback is None
             and tparams.abort_callback is None)
+
+
+def _make_grammar(tparams: TranscribeParams) -> Optional[Grammar]:
+    """Fresh grammar state per decode attempt."""
+    rules = tparams.grammar_rules
+    if rules is None:
+        return None
+    if isinstance(rules, str):
+        return grammar_from_gbnf(rules)
+    if isinstance(rules, Grammar):
+        # re-init from the same rule set
+        return Grammar(rules.rules, tparams.i_start_rule)
+    return Grammar(list(rules), tparams.i_start_rule)
 
 
 def _strategy(tparams: TranscribeParams) -> str:
@@ -197,10 +208,6 @@ class WhisperPipeline:
         config = self.config
         self.segments = []
         temperatures = tparams.temperatures()
-        why = _unsupported(tparams)
-        if why is not None:
-            raise NotImplementedError(
-                f"{why} is not ported to godot_whisper_tpu_torch yet")
 
         if samples is not None and len(samples) > 0:
             self.set_audio(samples)
@@ -341,6 +348,18 @@ class WhisperPipeline:
             self._window_decoders[key] = wd
         return wd
 
+    def host_decoder(self, tparams: TranscribeParams) -> HostWindowDecoder:
+        """The host-stepped decoder on the window decoder's FilterContext."""
+        key = ("host", tparams.suppress_non_speech_tokens,
+               tparams.tdrz_enable, round(tparams.max_initial_ts, 6))
+        hd = self._window_decoders.get(key)
+        if hd is None:
+            hd = HostWindowDecoder(self.config,
+                                   self.window_decoder(tparams).fctx,
+                                   self.tokenizer)
+            self._window_decoders[key] = hd
+        return hd
+
     def encode_window(self, seek: int, audio_ctx: int = 0,
                       quant_kv: bool = False):
         """Encode mel[seek : seek + 2 * n_ctx] -> (enc_out, CrossKV), the
@@ -367,10 +386,14 @@ class WhisperPipeline:
         path declines): per window one encode, then the ladder, each rung
         one ``WindowDecoder`` call at that rung's decoder count; beam search
         on a t = 0 rung of more than one decoder, as the clip path runs
-        it, and best_of sampling above."""
+        it, and best_of sampling above.  Grammar rules or the logit-filter
+        callback put every rung on the host-stepped decoder, one row."""
         config = self.config
-        wd = self.window_decoder(tparams)
         strategy = _strategy(tparams)
+        host_mode = (tparams.grammar_rules is not None
+                     or tparams.logits_filter_callback is not None)
+        wd = (self.host_decoder(tparams) if host_mode
+              else self.window_decoder(tparams))
         seek = seek_start
         while True:
             if tparams.progress_callback:
@@ -391,7 +414,7 @@ class WhisperPipeline:
 
             best = None
             for it, t_cur in enumerate(temperatures):
-                n_dec = tparams.n_decoders_at(t_cur)
+                n_dec = 1 if host_mode else tparams.n_decoders_at(t_cur)
                 # build prompt (whisper.cpp:5237-5249)
                 prompt: List[int] = []
                 if (prompt_past and t_cur < 0.5
@@ -401,22 +424,37 @@ class WhisperPipeline:
                     prompt = [config.token_prev] + prompt_past[-n_take:]
                 prompt += prompt_init
                 beam = strategy == "beam" and n_dec > 1 and t_cur < 1e-6
-
                 t0 = time.perf_counter()
                 with tracer.span("decode_window", seek=seek,
                                  temperature=t_cur, n_decoders=n_dec):
-                    res = wd.decode(
-                        self.params, xkv, np.asarray(prompt, np.int32),
-                        n_decoders=n_dec, temperature=t_cur,
-                        strategy="beam" if beam else "greedy",
-                        beam_size=n_dec if beam else 1, seek=seek,
-                        seek_end=seek_end,
-                        suppress_blank=tparams.suppress_blank,
-                        no_timestamps=no_timestamps,
-                        single_segment=tparams.single_segment,
-                        max_tokens=tparams.max_tokens,
-                        test_mode=(self.n_loaded == 0),
-                        seed=tparams.seed + it)
+                    if host_mode:
+                        # the grammar re-inited per attempt
+                        # (whisper.cpp:5228-5232)
+                        res = wd.decode(
+                            self.params, xkv, np.asarray(prompt, np.int32),
+                            temperature=t_cur, seek=seek, seek_end=seek_end,
+                            suppress_blank=tparams.suppress_blank,
+                            no_timestamps=no_timestamps,
+                            single_segment=tparams.single_segment,
+                            max_tokens=tparams.max_tokens,
+                            grammar=_make_grammar(tparams),
+                            grammar_penalty=tparams.grammar_penalty,
+                            logits_filter_callback=(
+                                tparams.logits_filter_callback),
+                            seed=tparams.seed + it)
+                    else:
+                        res = wd.decode(
+                            self.params, xkv, np.asarray(prompt, np.int32),
+                            n_decoders=n_dec, temperature=t_cur,
+                            strategy="beam" if beam else "greedy",
+                            beam_size=n_dec if beam else 1, seek=seek,
+                            seek_end=seek_end,
+                            suppress_blank=tparams.suppress_blank,
+                            no_timestamps=no_timestamps,
+                            single_segment=tparams.single_segment,
+                            max_tokens=tparams.max_tokens,
+                            test_mode=(self.n_loaded == 0),
+                            seed=tparams.seed + it)
                 self.timings.t_decode_us += int(
                     (time.perf_counter() - t0) * 1e6)
                 self.timings.n_decode += res.n_steps * n_dec

@@ -48,7 +48,7 @@ class TranscribeParams:
     audio_ctx: int = 0  # 0 = full n_audio_ctx; reduced for streaming speed
 
     # int8-quantized cross-attention KV (bandwidth optimization for
-    # large models).  Not ported yet: the pipeline raises when it is set.
+    # large models; see models/model.py QuantCrossKV).  Opt-in.
     cross_kv_int8: bool = False
 
     tdrz_enable: bool = False

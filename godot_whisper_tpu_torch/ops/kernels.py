@@ -6,7 +6,8 @@ C entry point.  The first call that needs a kernel compiles ALL sources with
 each into its own shared library, and loads the one asked for through
 ``ctypes``.  Libraries land under ``godot_whisper_tpu_torch/_build/<key>/``
 where ``<key>`` hashes the sources and the flags, so an edited source
-rebuilds and an unchanged tree reuses the previous build.
+rebuilds and an unchanged tree reuses the previous build
+(``runtime/cache.py::enable_compilation_cache`` moves ``BUILD_ROOT``).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc`` or a card.

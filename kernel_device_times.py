@@ -39,9 +39,10 @@ Times, at chip_smoke.py's shapes (bf16, random inputs from numpy seed 0):
   ``MelFrontend.device`` on chip_smoke.py's 34 s clip (pad, upload, K1,
   normalize; host clock around synchronizes, median of 30).
 
-Each kernel wrapper is captured in a CUDA graph and replayed
-(``chip_smoke.graph_ms``: the device time without the host's time to
-enqueue the call), beside one PyTorch call computing the same function:
+Each kernel wrapper is captured in a CUDA graph and replayed (``graph_ms``
+of this checkout's ``godot_whisper_tpu_torch/cli/bench.py``: the device
+time without the host's time to enqueue the call), beside one PyTorch
+call computing the same function:
 SDPA with a boolean key mask (over keys gathered beforehand for K7, over
 K/V dequantized beforehand for K11 / K12), torch.mm on the weight held in
 bf16 for K9 / K10.  ``--root`` names the checkout whose
@@ -65,11 +66,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _chip_smoke():
-    """This checkout's chip_smoke.py (for ``graph_ms``), whatever --root
-    says."""
+def _here(name: str, path: str):
+    """A module of this checkout by its path, whatever --root says."""
     spec = importlib.util.spec_from_file_location(
-        "_chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+        name, os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -85,7 +85,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_device_times: no CUDA device", file=sys.stderr)
         return 2
-    cs = _chip_smoke()
+    cs = _here("_chip_smoke_here", "chip_smoke.py")
+    graph_ms = _here("_bench_here",
+                     "godot_whisper_tpu_torch/cli/bench.py").graph_ms
     sys.path.insert(0, os.path.abspath(args.root))
     import godot_whisper_tpu_torch
     from godot_whisper_tpu_torch.models.model import (CrossKV,
@@ -108,11 +110,11 @@ def main() -> int:
     def record(name, fn, lib=None, chain=None):
         fn()
         torch.cuda.synchronize()
-        out[name] = {"device_ms": cs.graph_ms(torch, fn),
+        out[name] = {"device_ms": graph_ms(fn),
                      "library_device_ms": (None if lib is None
-                                           else cs.graph_ms(torch, lib))}
+                                           else graph_ms(lib))}
         if chain is not None:
-            out[name]["chain_device_ms"] = cs.graph_ms(torch, chain)
+            out[name]["chain_device_ms"] = graph_ms(chain)
 
     # K3 / K4
     for name, S, H, B, kvg, C, L, lo_v, split, hi, layer in (

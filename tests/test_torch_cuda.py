@@ -15,8 +15,8 @@ import pytest
 import torch
 
 import godot_whisper_tpu_torch as gt
-from chip_smoke import (blocked_bf16_limit, filter_edge_errors, mel_f64,
-                        mel_limit, mel_tf32_one_pass)
+from chip_smoke import (blocked_bf16_limit, filter_edge_errors,
+                        frozen_audio, mel_f64, mel_limit, mel_tf32_one_pass)
 from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
                                                pad_audio)
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -617,12 +617,16 @@ def test_from_file_on_the_card(cuda, tmp_path):
     (384, 6, 3, 1, 512, [1, 4, 9], 232, 333),          # the dead gap
     (1280, 20, 8, 8, 1536, [1500] * 8, 1536, 0),       # kv_group 8, 160 lanes
     (384, 6, 5, 5, 1000, [990] * 5, 1000, 0),          # slices do not divide C
+    (384, 6, 1, 1, 512, [0], 0, 4),                    # host path, step 0
+    (384, 6, 1, 1, 512, [0], 0, 230),                  # host path, step 226
 ], ids=["step0", "current-token-only", "dead-gap", "kv_group8",
-        "C1000"])
+        "C1000", "contiguous-step0", "contiguous-step226"])
 def test_decode_attention_split_edges(cuda, case):
     """The split-cache K3/K4 at its edge cases against its plain version
     (bf16 inputs, within 1e-4), bitwise equal from call to call (the merge
-    runs in split order)."""
+    runs in split order).  The host-stepped decoder's contiguous cache
+    (split 0, lo 0, hi = slot + 1: one region, the slots past hi hold the
+    prompt pass's padding rows) is one of them."""
     s, h, b, kv_group, c, lo, split, hi = case
     g = torch.Generator().manual_seed(6)
     q = torch.randn(b, s, generator=g).to(cuda, torch.bfloat16)
@@ -1016,3 +1020,29 @@ def test_incremental_mel_on_card_matches_host(cuda):
         mel.cpu().numpy(), log_mel_host(audio, ctx.pipeline.mel.filters,
                                         n_frames=inc.cap),
         atol=2e-5, rtol=2e-5)
+
+
+def test_identity_callback_decodes_like_the_clip_path_on_card(cuda):
+    """nano-3 f32 with an identity logits_filter_callback takes the
+    host-stepped decoder (K3 for one row's self- and cross-attention, the
+    plain filters, no K5) and gives the tokens of the same params without
+    it (the clip path through K5): on 34 s, two windows and tens of text
+    and timestamp tokens."""
+    from godot_whisper_tpu_torch.ops.filter_sample import fused_filter_sample
+    ctx = _nano3()
+    audio = frozen_audio(34.0)
+    p = dict(best_of=1, temperature_inc=0.0, entropy_thold=-1e9,
+             logprob_thold=-1e9)
+    plain = ctx.full(gt.TranscribeParams(**p), audio)
+    D.decode_attention.group_launches.clear()
+    before = fused_filter_sample.launches
+    hooked = ctx.full(gt.TranscribeParams(
+        logits_filter_callback=lambda tokens, logits: None, **p), audio)
+    torch.cuda.synchronize()
+    assert D.decode_attention.group_launches[1] > 0
+    assert set(D.decode_attention.group_launches) == {1}
+    assert fused_filter_sample.launches == before
+
+    def ids(segs):
+        return [[x.id for x in s.tokens] for s in segs]
+    assert sum(map(len, ids(plain))) >= 20 and ids(hooked) == ids(plain)

@@ -215,13 +215,3 @@ def test_pipeline_helpers_need_a_device():
         build_filter_context(cfg, None)
     with pytest.raises(TypeError, match="device"):
         init_kv_cache(cfg, 1, 32)
-
-
-@pytest.mark.parametrize("kw,base", [
-    (dict(grammar_rules="root ::= \"a\""), "tiny.en"),
-    (dict(logits_filter_callback=lambda *a: None), "tiny.en"),
-])
-def test_unported_paths_raise(kw, base):
-    ctx = _ctx(base)
-    with pytest.raises(NotImplementedError):
-        ctx.full(gt.TranscribeParams(**kw), _frozen_audio())
