@@ -67,13 +67,37 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (xf - mean) * torch.rsqrt(var + eps) * g + b
 
 
+class _MatmulF32(torch.autograd.Function):
+    """2-D x @ w of low-precision operands with an f32 result, under
+    autograd (``torch.mm(..., out_dtype=float32)`` has no derivative).  The
+    backward is JAX's transpose of a ``preferred_element_type=float32``
+    dot: the f32 cotangent times the other operand widened to f32, each
+    gradient rounded once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        return ((g @ w.float().t()).to(x.dtype),
+                (x.float().t() @ g).to(w.dtype))
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation and an f32 result (the JAX package's
     ``preferred_element_type=float32``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _MatmulF32.apply(x2, w)
+        else:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -151,7 +175,9 @@ def conv_stem(enc: Params, mel_window: torch.Tensor) -> torch.Tensor:
     unrounded sum, as the JAX package's jitted window encode computes it
     (XLA's excess precision drops the bf16 rounding of the conv output);
     the first GELU's output is rounded to the compute dtype.  f32 must not
-    drop to TF32 in cuDNN."""
+    drop to TF32 in cuDNN; the flags hold for this forward only, so a
+    backward through the stem sets them again (``models/training.py``
+    takes its gradients inside the same flags)."""
     cdtype = enc["conv1"]["w"].dtype
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         x = mel_window.to(cdtype).transpose(1, 2)              # (B, M, 2T)

@@ -35,18 +35,28 @@ _F32_KEYS = {"g", "b", "bq", "bv", "bo", "b0", "b1", "bqkv", "pos_embed"}
 _CONV_KEYS = {("encoder", "conv1", "w"), ("encoder", "conv2", "w")}
 
 
-def _map(tree, fn, path=()):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
-    return fn(tree, path)
+def tree_map(fn, *trees, path=()):
+    """``fn(path, *leaves)`` over nested dicts of one structure, into a
+    tree of that structure; ``path`` is the tuple of keys to the leaf."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees), path=path + (k,))
+                for k in trees[0]}
+    return fn(path, *trees)
+
+
+def tree_leaves(tree) -> list:
+    """``[(path, leaf), ...]`` in the tree's order."""
+    out = []
+    tree_map(lambda path, x: out.append((path, x)), tree)
+    return out
 
 
 def cast_params(params: Params, compute_dtype) -> Params:
     """Matmul weights -> compute_dtype; norms, biases and positional
     embeddings -> float32; quantized weights stay as they are."""
-    return _map(params, lambda t, path: t if isinstance(t, QUANT_TYPES)
-                else t.to(torch.float32 if path[-1] in _F32_KEYS
-                          else compute_dtype))
+    return tree_map(lambda path, t: t if isinstance(t, QUANT_TYPES)
+                    else t.to(torch.float32 if path[-1] in _F32_KEYS
+                              else compute_dtype), params)
 
 
 def _numpy_to_torch(a) -> torch.Tensor:
@@ -65,7 +75,7 @@ def params_from_jax(tree: Params) -> Params:
     transposed from ``(width, in, out)`` to ``(out, in, width)``, and the
     JAX package's quantized leaves (NamedTuples ``(q, s)``) become
     ``QuantTensor`` (int8 ``q``) or ``Quant4Tensor`` (uint8 ``q``)."""
-    def leaf(a, path):
+    def leaf(path, a):
         if getattr(a, "_fields", None) == ("q", "s"):
             q, s = _numpy_to_torch(a.q), _numpy_to_torch(a.s)
             return (Quant4Tensor if q.dtype == torch.uint8
@@ -74,14 +84,14 @@ def params_from_jax(tree: Params) -> Params:
         if path in _CONV_KEYS:
             t = t.permute(2, 1, 0).contiguous()
         return t
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(params: Params) -> Params:
     """The port's tree back in the JAX package's layout as numpy arrays
     (bf16 leaves widened to float32, which is exact; quantized leaves as
     their container type holding numpy ``q`` and ``s``)."""
-    def leaf(t, path):
+    def leaf(path, t):
         if isinstance(t, QUANT_TYPES):
             return type(t)(*(x.detach().cpu().contiguous().numpy()
                              for x in t))
@@ -90,7 +100,7 @@ def params_to_numpy(params: Params) -> Params:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.detach().cpu().contiguous().numpy()
-    return _map(params, leaf)
+    return tree_map(leaf, params)
 
 
 def init_params(config: WhisperConfig, *, seed: int = 0,
@@ -154,7 +164,7 @@ def _tree_to_device(tree, compute_dtype, device) -> Params:
     in the dtype policy on ``device`` (None is the card)."""
     dev = resolve_device(device)
     params = cast_params(params_from_jax(tree), compute_dtype)
-    return _map(params, lambda t, path: t.to(dev))
+    return tree_map(lambda _, t: t.to(dev), params)
 
 
 def _attn_block_names(prefix: str) -> Dict[str, str]:

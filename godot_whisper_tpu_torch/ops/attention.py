@@ -19,6 +19,10 @@ blocked one, and the card checks hold each to its plain version.  bf16
 inputs run both kernels on the tensor cores (``wgmma``,
 csrc/enc_attn_tc.cuh); f32 inputs run their CUDA-core FMA kernels in full
 f32.
+
+Under autograd (training, models/training.py) both kernels still compute
+the forward; ``RecomputeAttention`` gives their output a gradient by
+recomputing the kernel's plain function in the backward.
 """
 
 from __future__ import annotations
@@ -119,6 +123,39 @@ def _check(what: str, q, k, v, tv: int) -> None:
                          "(the bf16 kernels copy 16-byte rows)")
 
 
+class RecomputeAttention(torch.autograd.Function):
+    """Encoder attention under autograd: the forward is a kernel's launch,
+    exactly as without autograd; the backward recomputes that kernel's
+    plain function (``attention_bh_sp_plain`` for K2,
+    ``attention_bh_blocked_plain`` for K13) from the saved q, k and v and
+    differentiates it, so the gradient is that of the function the forward
+    computed, with the same ``t_valid`` masking.  The backward launches no
+    kernel: the JAX package has no gradient for its Pallas kernels, so
+    there is no backward kernel to port.
+
+    ``apply(q, k, v, t_valid, forward, plain)``: ``forward(q, k, v,
+    t_valid)`` computes the output (a kernel's launch on the card; the
+    tests pass the plain function on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_valid, forward, plain):
+        ctx.save_for_backward(q, k, v)
+        ctx.t_valid, ctx.plain = t_valid, plain
+        return forward(q, k, v, t_valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*saved, ctx.t_valid)
+            grads = torch.autograd.grad(out, saved, grad_out)
+        return (*grads, None, None, None)
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        t_valid: Optional[int] = None) -> torch.Tensor:
     """Encoder attention: (BH, T, D) q/k/v (f32 or bf16, D 32 or 64) ->
@@ -126,12 +163,22 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_bh_plain``, at every T, as the JAX package does off the
     TPU.  On the card a 512-padded T above 1536 goes to K13
     (``flash_attention_long``); a shorter one launches K2
-    (csrc/enc_attn.cu: single-pass function, ``attention_bh_sp_plain``)."""
-    bh, t, d = q.shape
+    (csrc/enc_attn.cu: single-pass function, ``attention_bh_sp_plain``),
+    through ``RecomputeAttention`` when a gradient is asked for."""
+    t = q.shape[1]
     if q.device.type == "cpu":
         return attention_bh_plain(q, k, v, t_valid)
     if -(-t // BLOCK_K) * BLOCK_K > SP_MAX_T:
         return flash_attention_long(q, k, v, t_valid)
+    if _needs_grad(q, k, v):
+        return RecomputeAttention.apply(q, k, v, t_valid, _enc_attn,
+                                        attention_bh_sp_plain)
+    return _enc_attn(q, k, v, t_valid)
+
+
+def _enc_attn(q, k, v, t_valid) -> torch.Tensor:
+    """Launch K2 (csrc/enc_attn.cu) on CUDA tensors."""
+    bh, t, d = q.shape
     tv = t if t_valid is None else int(t_valid)
     _check("flash_attention_bh", q, k, v, tv)
     out = torch.empty_like(q)
@@ -149,10 +196,18 @@ def flash_attention_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          t_valid: Optional[int] = None) -> torch.Tensor:
     """K13 wrapper: (BH, T, D) q/k/v (f32 or bf16, D 32 or 64), any T, keys
     >= ``t_valid`` masked -> (BH, T, D) in q's dtype.  CUDA tensors launch
-    csrc/enc_attn_long.cu, CPU tensors take
-    ``attention_bh_blocked_plain``."""
+    csrc/enc_attn_long.cu (through ``RecomputeAttention`` when a gradient
+    is asked for), CPU tensors take ``attention_bh_blocked_plain``."""
     if q.device.type == "cpu":
         return attention_bh_blocked_plain(q, k, v, t_valid)
+    if _needs_grad(q, k, v):
+        return RecomputeAttention.apply(q, k, v, t_valid, _enc_attn_long,
+                                        attention_bh_blocked_plain)
+    return _enc_attn_long(q, k, v, t_valid)
+
+
+def _enc_attn_long(q, k, v, t_valid) -> torch.Tensor:
+    """Launch K13 (csrc/enc_attn_long.cu) on CUDA tensors."""
     bh, t, d = q.shape
     tv = t if t_valid is None else int(t_valid)
     _check("flash_attention_long", q, k, v, tv)

@@ -4,6 +4,7 @@
     python3 profile_torch_main_path.py [--model tiny.en] [--seconds 34]
                                        [--beam K] [--quantize int8|int4]
                                        [--cross-kv-int8] [--root DIR]
+    python3 profile_torch_main_path.py --train bf16|f32 [--model tiny.en]
 
 Drives ``WhisperContext.synthetic(model, seed=0)`` (bf16) ``.full(
 TranscribeParams(), audio)`` on the deterministic test clip (with
@@ -28,6 +29,17 @@ TranscribeParams(), audio)`` on the deterministic test clip (with
    (``WindowDecoder.decode``: prompt pass + token loop; greedy, or beam K
    with ``--beam``) at the main path's rows per stream, per decode step.
 
+``--train DTYPE`` profiles ``models/training.py::train_step`` instead,
+as ``chip_smoke.py`` phase 15 (a) sets it up: ``init_params(model,
+seed=0)`` in DTYPE, a batch of eight 30 s slices of the test clip (mel
+from K1), 64 teacher-forced tokens from a numpy seed, lr 1e-4.  Two
+warm-up steps; five timed rounds of the forward alone (``loss_fn`` without
+autograd), ``loss_and_grads`` and the whole step (AdamW is the step less
+``loss_and_grads``), medians and the peak of ``max_memory_allocated``;
+then three steps under ``torch.profiler``: device time a step, the busy
+share of the median step wall, launches a step, device time by kernel
+family and the top kernels.
+
 ``--root`` names the checkout whose ``godot_whisper_tpu_torch`` is
 profiled (default: this one), so that one call can profile a parent commit
 unpacked elsewhere and this tree in turns.  Prints a human-readable
@@ -47,7 +59,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import frozen_audio
+from chip_smoke import card_line, frozen_audio, train_batch
 
 # Kernel families by device-side name, current and older ones (a --root
 # checkout may hold the older; there K12's exact mode reads as K11).  K11
@@ -62,6 +74,16 @@ FAMILIES = (("K5", r"filter_sample_kernel"),
                     r"|qmm_tc<2>"),
             ("K11", r"xattn_q_kernel<\d+(, false)?>"),
             ("K12", r"xattn_packed_kernel|xattn_q_kernel<\d+, true>"))
+# --train: device time by family, each kernel counted under the first
+# family whose pattern its name matches
+TRAIN_FAMILIES = (("K2/K13", r"enc_attn"),
+                  ("gemm", r"gemm|sm90_xmma|cutlass|cublas"),
+                  ("conv", r"conv|cudnn|implicit|winograd|fft"),
+                  ("softmax", r"softmax"),
+                  ("reduce", r"reduce"),
+                  ("elementwise", r"elementwise|vectorized|unrolled|index|"
+                                  r"scatter|gather|fill|cat"),
+                  ("copy", r"Memcpy|Memset|copy"))
 
 
 def _kernel_us(evt) -> float:
@@ -77,6 +99,106 @@ def _kernel_us(evt) -> float:
     return 0.0
 
 
+def _device_rows(prof):
+    """[(device us, calls, name)] of a profile's kernels and copies,
+    largest first."""
+    rows = [(_kernel_us(e), e.count, e.key) for e in prof.key_averages()]
+    return sorted((r for r in rows if r[0] > 0), reverse=True)
+
+
+def profile_train(model: str, dtype_name: str) -> int:
+    """The ``--train`` mode (see the module docstring)."""
+    import torch
+    import godot_whisper_tpu_torch as gt
+    from godot_whisper_tpu_torch.audio.mel import MelFrontend, mel_filterbank
+    from godot_whisper_tpu_torch.models import training as tt
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T = 8, 64
+    sync = torch.cuda.synchronize
+    dev = torch.device("cuda")
+    card = card_line()
+    cfg = gt.get_config(model)
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    audio = frozen_audio(30.0 * B + 30.0)
+    mel, _ = MelFrontend(mel_filterbank(cfg.n_mels), dev).device_batch(
+        [audio[i * 480000:(i + 1) * 480000] for i in range(B)])
+    batch = train_batch(torch, cfg, mel, T, np.random.default_rng(15), dev)
+    state = tt.init_train_state(gt.init_params(cfg, seed=0,
+                                               compute_dtype=dtype))
+    for _ in range(2):
+        state, _ = tt.train_step(state, cfg, batch)
+    sync()
+
+    def forward():
+        with torch.no_grad():
+            return tt.loss_fn(state.params, cfg, batch["mel"],
+                              batch["tokens"], batch["targets"],
+                              batch["mask"])
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    fwd, grad, step = [], [], []
+    peak = 0
+    for _ in range(5):
+        fwd.append(timed(forward)[0])
+        grad.append(timed(lambda: tt.loss_and_grads(state.params, cfg,
+                                                    batch))[0])
+        torch.cuda.reset_peak_memory_stats()
+        ms, (state, _) = timed(lambda: tt.train_step(state, cfg, batch))
+        step.append(ms)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    med = {k: float(np.median(v)) for k, v in
+           (("forward", fwd), ("loss_and_grads", grad), ("step", step))}
+    med["adamw"] = med["step"] - med["loss_and_grads"]
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = tt.train_step(state, cfg, batch)
+        sync()
+    rows = _device_rows(prof)
+    dev_us = sum(r[0] for r in rows)
+    calls = sum(r[1] for r in rows)
+    family = {k: 0.0 for k, _ in TRAIN_FAMILIES}
+    family["other"] = 0.0
+    for us, _, key in rows:
+        name = next((k for k, pat in TRAIN_FAMILIES
+                     if re.search(pat, key, re.IGNORECASE)), "other")
+        family[name] += us
+    busy = dev_us / 1e3 / (3 * med["step"])
+
+    print(f"[{card}] train_step {model} {dtype_name} B {B} T {T}: ms a "
+          f"step {step} (median {med['step']}), forward alone "
+          f"{med['forward']}, loss_and_grads {med['loss_and_grads']}, "
+          f"AdamW (step less loss_and_grads) {med['adamw']}; peak memory "
+          f"{peak / 2 ** 20} MiB")
+    print(f"[{card}] profiled 3 steps: device time {dev_us / 3e3} ms a "
+          f"step, busy share {busy} of the median step wall, "
+          f"{calls / 3} kernels and copies a step")
+    print("device time by family (ms a step, share): " + ", ".join(
+        f"{k} {us / 3e3} {us / max(dev_us, 1e-9)}"
+        for k, us in family.items()))
+    print("top device time by kernel (us a step, calls a step, name):")
+    for us, n, key in rows[:15]:
+        print(f"  {us / 3:12.1f} {n / 3:8.1f}  {key[:100]}")
+    print(json.dumps({
+        "card": card, "model": model, "dtype": dtype_name, "batch": B,
+        "tokens": T, "step_ms": step, "median_ms": med,
+        "peak_mib": peak / 2 ** 20, "device_ms_per_step": dev_us / 3e3,
+        "busy_share": busy, "device_ops_per_step": calls / 3,
+        "family_ms_per_step": {k: us / 3e3 for k, us in family.items()},
+        "top": [{"us_per_step": us / 3, "calls_per_step": n / 3,
+                 "name": key[:120]} for us, n, key in rows[:15]]}))
+    return 0
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
@@ -90,12 +212,18 @@ def main() -> int:
                     help="int8 cross-attention K/V")
     ap.add_argument("--root", default=None,
                     help="checkout whose godot_whisper_tpu_torch is profiled")
+    ap.add_argument("--train", choices=("bf16", "f32"), default=None,
+                    help="profile train_step in this dtype instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 2
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        return profile_train(args.model, args.train)
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.decode.filters import build_filter_context
     from godot_whisper_tpu_torch.decode.window import WindowDecoder
@@ -105,8 +233,6 @@ def main() -> int:
     from godot_whisper_tpu_torch.ops import cross_attention as CA
     from godot_whisper_tpu_torch.ops import qmatmul as Q
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sync = torch.cuda.synchronize
     audio = frozen_audio(args.seconds)
     ctx = gt.WhisperContext.synthetic(args.model, seed=0,
@@ -143,12 +269,7 @@ def main() -> int:
     prof_wall = time.perf_counter() - t0
     per_step = {fn.__name__: fn.launches / max(ctx.timings.n_decode, 1)
                 for fn in quant}
-    rows = []
-    for e in prof.key_averages():
-        us = _kernel_us(e)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     dev_total_us = sum(r[0] for r in rows)
     kernel_calls = sum(r[1] for r in rows)
     family_us = {k: sum(us for us, _, key in rows if re.search(pat, key))

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version at the main-path and large-v3 shapes, and the nano golden
-transcripts through the kernels.  Every test here needs an NVIDIA GPU
-(``cuda`` marker) and skips without one.  Imports no JAX, so that it runs
-where JAX is not installed:
+version at the main-path and large-v3 shapes, the nano golden
+transcripts through the kernels, and training's gradients through K2 and
+K13 (models/training.py) against the CPU route.  Every test here needs
+an NVIDIA GPU (``cuda`` marker) and skips without one.  Imports no JAX,
+so that it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -22,7 +23,9 @@ from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
 from godot_whisper_tpu_torch.decode.window import WindowDecoder
 from godot_whisper_tpu_torch.models.config import get_config
+from godot_whisper_tpu_torch.models import model as tm
 from godot_whisper_tpu_torch.models.model import cross_kv, encoder_forward
+from godot_whisper_tpu_torch.models.params import tree_leaves, tree_map
 from godot_whisper_tpu_torch.ops import attention as A
 from godot_whisper_tpu_torch.ops import decode_attention as D
 from godot_whisper_tpu_torch.ops import filter_sample as FS
@@ -1046,3 +1049,132 @@ def test_identity_callback_decodes_like_the_clip_path_on_card(cuda):
     def ids(segs):
         return [[x.id for x in s.tokens] for s in segs]
     assert sum(map(len, ids(plain))) >= 20 and ids(hooked) == ids(plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,t_valid,long", [(1536, 1500, False),
+                                            (2048, 2000, True)],
+                         ids=["K2", "K13"])
+def test_encoder_attention_under_autograd(cuda, dtype, t, t_valid, long):
+    """At phase 2's shapes (tiny.en, 6 heads): under autograd K2 / K13
+    still compute the forward (one launch, none in the backward) and the
+    output has a grad_fn; the gradients equal direct autograd of the
+    kernel's plain function on the card (the backward recomputes it from
+    the same q, k and v: 1e-6 of the largest element for summation
+    order)."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, w = (torch.randn(6, t, 64, generator=gen).to(
+        cuda, getattr(torch, dtype)) for _ in range(4))
+    plain = A.attention_bh_blocked_plain if long else A.attention_bh_sp_plain
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        return out, xs
+
+    before = (A.flash_attention_bh.launches, A.flash_attention_long.launches)
+    out, xs = grads(lambda a, b, c: A.flash_attention_bh(a, b, c, t_valid))
+    assert out.grad_fn is not None
+    out.backward(w)
+    torch.cuda.synchronize()
+    after = (A.flash_attention_bh.launches, A.flash_attention_long.launches)
+    assert after == ((before[0], before[1] + 1) if long
+                     else (before[0] + 1, before[1]))
+    ref, ys = grads(lambda a, b, c: plain(a, b, c, t_valid))
+    ref.backward(w)
+    for x, y in zip(xs, ys):
+        scale = float(y.grad.float().abs().max())
+        assert scale > 0
+        assert float((x.grad.float() - y.grad.float()).abs().max()) <= \
+            1e-6 * scale
+    assert float(xs[1].grad[:, t_valid:].float().abs().max()) == 0.0
+
+
+def test_matmul_f32_under_autograd(cuda):
+    """The card's bf16 x bf16 -> f32 product (``torch.mm(out_dtype=)``,
+    which has no derivative) under autograd: its gradients within one bf16
+    ulp of autograd through the CPU route's ``x.float() @ w.float()`` on
+    the card."""
+    gen = torch.Generator().manual_seed(3)
+    x, w = (torch.randn(*s, generator=gen).to(cuda, torch.bfloat16)
+            for s in ((2, 40, 384), (384, 1152)))
+    g = torch.randn(2, 40, 1152, generator=gen).to(cuda)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = tm._matmul_f32(xa, wa)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    y.backward(g)
+    xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    torch.matmul(xb.float(), wb.float()).backward(g)
+    for a, b in ((xa.grad, xb.grad), (wa.grad, wb.grad)):
+        assert a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            b.abs().clamp_min(1e-30))) - 7)
+        assert bool(((a - b).abs() <= ulp).all())
+
+
+def _nano_train(n_audio_ctx=64):
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=2, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, n_audio_ctx=n_audio_ctx,
+        name="nano")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.n_vocab, (2, 9)).astype(np.int32)
+    mask = np.ones((2, 8), np.float32)
+    mask[1, 4:] = 0.0
+    batch = {"mel": rng.standard_normal(
+        (2, 2 * n_audio_ctx, cfg.n_mels)).astype(np.float32),
+        "tokens": tok[:, :-1], "targets": tok[:, 1:], "mask": mask}
+    return cfg, batch, gt.init_params(cfg, seed=3,
+                                      compute_dtype=torch.float32,
+                                      device="cpu")
+
+
+def _to(tree, dev):
+    return tree_map(lambda _, x: x.to(dev), tree)
+
+
+def test_conv_stem_gradients_without_tf32(cuda):
+    """With cuDNN's TF32 switched on globally (PyTorch's default), the f32
+    conv stem's gradients on the card stay within 1e-5 (relative norm) of
+    the CPU's: ``loss_and_grads`` runs the backward with TF32 off, as the
+    stem runs its forward (TF32 would be about 1e-3 off)."""
+    from godot_whisper_tpu_torch.models import training as tt
+    cfg, batch, params = _nano_train()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, g_d = tt.loss_and_grads(_to(params, cuda), cfg, batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    _, g_h = tt.loss_and_grads(params, cfg, batch, device="cpu")
+    for name in ("conv1", "conv2"):
+        a = g_d["encoder"][name]["w"].cpu()
+        b = g_h["encoder"][name]["w"]
+        assert float((a - b).norm() / b.norm()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("n_audio_ctx", [64, 1500])
+def test_train_step_nano_on_card_matches_cpu(cuda, n_audio_ctx):
+    """nano f32 (at n_audio_ctx 1500 the card pads the encoder to 1536 and
+    masks the pad keys): the loss within 1e-5 and every gradient leaf
+    within 1e-4 (relative norm) of the CPU route's; K2 launches twice a
+    gradient (2 audio layers); two steps on the card lower the loss."""
+    from godot_whisper_tpu_torch.models import training as tt
+    cfg, batch, params = _nano_train(n_audio_ctx)
+    before = A.flash_attention_bh.launches
+    loss_d, g_d = tt.loss_and_grads(_to(params, cuda), cfg, batch)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bh.launches == before + 2
+    loss_h, g_h = tt.loss_and_grads(params, cfg, batch, device="cpu")
+    assert abs(float(loss_d) - float(loss_h)) <= 1e-5 * float(loss_h)
+    want = dict(tree_leaves(g_h))
+    for key, g in tree_leaves(g_d):
+        assert g.device.type == "cuda"
+        err = float((g.cpu() - want[key]).norm()
+                    / max(float(want[key].norm()), 1e-30))
+        assert err <= 1e-4, (key, err)
+    state = tt.init_train_state(_to(params, cuda))
+    state, l1 = tt.train_step(state, cfg, batch)
+    state, l2 = tt.train_step(state, cfg, batch)
+    assert float(l2) < float(l1)
+    assert state.params["encoder"]["conv1"]["w"].device.type == "cuda"
