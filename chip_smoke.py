@@ -134,6 +134,48 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    cut to 1 + 1 layers, f32, B 1, T 16: one step launches K13 once and K2
    never, and its gradients are within TRAIN_F32_LIMIT of the CPU route's.
 
+16. multiple processes -- worker processes of this script
+   (``--phase16-worker``) through parallel/procs.py: each with a timeout,
+   all killed on the first failure, a free port from binding port 0; every
+   line printed beside the card's name and power limit.  Every token
+   comparison fails below P16_MIN_TOKENS tokens: every K5 / K6 launch's
+   rows where tp 1 and tp n decode the same rows, else the segments,
+   decoded to P16_MAX_TOKENS without timestamps (P16_LONG); a token that
+   differs from tp 1's is traced to the first K5 launch that differs and
+   held to TP_FLIP_GAP there (p16_flip).  (a)
+   NCCL, a world of 1: an all-reduce through parallel/collectives.py, and
+   MultiHostBatchTranscriber on 3 tiny.en bf16 clips equal to
+   BatchTranscriber token for token.  (b) tp 2 over gloo, two ranks
+   sharing the card, tiny.en at full width (3 of 6 heads and 192 of 384
+   features a rank), f32 then bf16: the logits of a prompt pass and 20
+   decoder steps (teacher-forced on tp 1's argmax) within TP_F32_LIMIT /
+   TP_BF16_LIMIT of tp 1's, an argmax that differs held to TP_FLIP_GAP;
+   in bf16, the share of a row-parallel projection's outputs that differ
+   from one device's within TP_ROW_SHARE, and past it with the partials
+   reduced in bf16; full(34 s) on the default ladder (max_tokens
+   P16_MAX_TOKENS), tokens equal to tp 1 in f32 (in bf16, equal or a near
+   tie) and equal on both ranks;
+   K1-K5 launched on every rank, K2 at B x 3 heads; one step's census: 3 x
+   n_text_layer + 2 all-reduces, the largest the (B, V) f32 logits, none
+   of KV-cache size.  (c) dp 2: MultiHostBatchTranscriber with counts [3,
+   1] then [3, 0], f32, the t = 0 rung: every rank's clips equal
+   BatchTranscriber's on the same clips.  (d) tp 2: beam 5 (f32; K6, K7,
+   K4 at kv_group 5) with tokens equal to tp 1, and int8 weights with the
+   int8 cross-KV (bf16; K9 io / oi rows, K12 on the local heads): (b)'s
+   logits within TP_BF16_LIMIT and tokens equal or a near tie; then four
+   ranks at tp 4, large-v3 widths cut to 2 + 2 layers (5 of 20 heads a
+   rank), f32: (b)'s logits within TP_F32_LIMIT of tp 1's, 3 x 2 + 2
+   all-reduces a step, and beam 5 over 10 s with tokens equal to tp 1.
+   (e) dp 2 x tp 2 train_step, four ranks, tiny.en on phase 15's batch (B
+   8 split 4 + 4, T 64), f32 and bf16: the gradients and the params after
+   two steps, gathered and unsharded, against the one-process step on the
+   card within phase 15's limits (relative norm, worst leaf); the bf16
+   leaves that start at zero element by element within Adam's tolerance
+   (adam_tol); ms a step.  Times in this phase are not tensor-parallel
+   speed-ups: the ranks share one card and gloo stages every all-reduce
+   through the host.  NCCL across ranks is not run (NCCL refuses two
+   ranks on one device).
+
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
 """
@@ -1794,6 +1836,58 @@ def check_host_path(torch, gt, zero, read, tmp):
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return times
 
+def launch_counters(torch):
+    """(the kernel wrappers, ``zero``, ``read``): ``zero(c)`` sets every
+    launch counter to 0 (and ``c``'s timings, if any); ``read()`` gives
+    (launches by kernel and route, decode_attention launches by kv_group)
+    since the last ``zero``."""
+    from godot_whisper_tpu_torch.ops.attention import (flash_attention_bh,
+                                                       flash_attention_long)
+    from godot_whisper_tpu_torch.ops.cross_attention import (xattn_q_packed,
+                                                             xattn_q_wide)
+    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
+    from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
+                                                           fused_filter_topk)
+    from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
+    from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
+    from godot_whisper_tpu_torch.ops.qmatmul import (quant_matmul,
+                                                     quant_matmul4)
+    from godot_whisper_tpu_torch.ops.split_attention import \
+        split_beam_attention
+    counters = (log_mel_raw, flash_attention_bh, decode_attention,
+                fused_filter_sample, fused_filter_topk, split_beam_attention,
+                reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
+                xattn_q_packed, flash_attention_long)
+
+    def zero(c):
+        for fn in counters:
+            fn.launches = 0
+        for cnt in (decode_attention.group_launches,
+                    decode_attention.rows_launches,
+                    flash_attention_bh.ctx_launches,
+                    quant_matmul.layout_launches,
+                    quant_matmul.route_launches,
+                    quant_matmul4.route_launches,
+                    xattn_q_packed.mode_launches):
+            cnt.clear()
+        if c is not None:
+            c.timings.reset()
+        torch.cuda.synchronize()
+
+    def read():
+        torch.cuda.synchronize()
+        n = {fn.__name__: fn.launches for fn in counters}
+        n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
+        for route in ("io_rows", "oi_rows", "tc"):
+            n[f"quant_matmul_{route}"] = quant_matmul.route_launches[route]
+        for route in ("rows", "tc"):
+            n[f"quant_matmul4_{route}"] = quant_matmul4.route_launches[route]
+        n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
+        return n, dict(decode_attention.group_launches)
+
+    return counters, zero, read
+
+
 # -------------------------------------------------------------- phase 15 --
 # the worst gradient leaf's ||g_card - g_cpu|| / ||g_cpu||, each limit
 # fixed from its reading on an H100 (700 W).  f32: measured 1.02e-5 at
@@ -1969,6 +2063,743 @@ def check_training(torch, gt, zero, read):
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -------------------------------------------------------------- phase 16 --
+# phase 16 holds tp 2 (tp 4, dp 2) to tp 1 on the same card.  Logits: a
+# prompt pass and 20 decoder steps teacher-forced on tp 1's argmax
+# (p16_decode20), max |tp n - tp 1| over max |tp 1|, each limit twice the
+# largest reading on the H100 (PERF.md, phase 16): f32 9.07e-7 (tp 4),
+# bf16 7.39e-3 (tp 2).  With the row-parallel partials reduced in bf16
+# (the rounding models/model.py::_row_proj avoids) the bf16 logits read
+# only 9.38e-3, so that fault is held where it shows: the share of a
+# row-parallel projection's bf16 outputs that differ from one device's
+# (p16_row_proj) must stay within TP_ROW_SHARE, and must exceed it with
+# the partials reduced in bf16.
+TP_F32_LIMIT = 2e-6
+TP_BF16_LIMIT = 1.5e-2
+TP_ROW_SHARE = 1e-2
+# a token that differs from tp 1's is a near tie when K5's score of tp
+# 1's token beat the other's by at most TP_FLIP_GAP (logit units, on tp
+# 1's logits) at the first launch that differs (p16_flip), and the
+# logits there are within the limit; else it fails
+TP_FLIP_GAP = 5e-2
+# every token comparison covers at least P16_MIN_TOKENS tokens.  Where tp
+# 1 and tp n decode the same rows, every K5 / K6 launch's rows are
+# compared (p16_full), the rejected rungs' too; where the batches differ,
+# (a) and (c), the segments.  A random model's timestamps jump to the
+# clip's end, which closes the window, and its low-entropy windows fail
+# the gates and emit nothing, so (a) and (c)-(d) decode without
+# timestamps, (c)-(d) with the gates off (P16_LONG): every window then
+# decodes P16_MAX_TOKENS + 1 tokens and emits them
+P16_MIN_TOKENS = 20
+P16_MAX_TOKENS = 48
+P16_LONG = dict(no_timestamps=True, entropy_thold=-1e9, logprob_thold=-1e9,
+                max_tokens=P16_MAX_TOKENS)
+P16_TIMEOUT = 300.0
+P16_LR = 1e-4   # models/training.py::init_train_state's default
+
+
+def n_tokens(segs) -> int:
+    return sum(len(s.tokens) for s in segs)
+
+
+def p16_decode20(torch, gt, ctx, audio, tokens=None, quant_kv=False):
+    """A prompt pass over [sot] and 20 decoder steps of one row on the
+    window at 0 (the cross-KV int8 with ``quant_kv``), fed ``tokens`` (or
+    its own argmax): (logits (21, V) f32 on the host, the tokens fed, the
+    census of the last step)."""
+    from godot_whisper_tpu_torch.models.model import (decoder_dense,
+                                                      decoder_step,
+                                                      init_kv_cache,
+                                                      param_compute_dtype)
+    from godot_whisper_tpu_torch.parallel import collectives as C
+    p, cfg, dev = ctx.pipeline, ctx.config, ctx.pipeline.device
+    p.set_audio(audio)
+    _, xkv = p.encode_window(0, quant_kv=quant_kv)
+    kv = init_kv_cache(cfg, 1, dtype=param_compute_dtype(p.params),
+                       device=dev, tp=p.tp)
+    tok = torch.tensor([[cfg.token_sot]], dtype=torch.int32, device=dev)
+    logits, kv = decoder_dense(p.params, cfg, tok, torch.zeros_like(tok), kv,
+                               xkv, n_valid=torch.ones(1, dtype=torch.int32,
+                                                       device=dev), tp=p.tp)
+    out, fed = [logits[0, -1].float().cpu()], []
+    lo = torch.zeros(1, dtype=torch.int32, device=dev)
+    for i in range(20):
+        nxt = int(out[-1].argmax()) if tokens is None else tokens[i]
+        fed.append(nxt)
+        if i == 19:
+            C.census.clear()
+        step_in = torch.tensor([nxt, 1 + i], dtype=torch.int32, device=dev)
+        logits, kv = decoder_step(p.params, cfg, step_in[0:1], step_in[1:2],
+                                  kv, xkv, lo=lo, slot=1 + i, split=0,
+                                  tp=p.tp)
+        out.append(logits[0].float().cpu())
+    census = {"summary": C.census_summary(), "kv_numel": kv.k.numel(),
+              "shapes": sorted([op, list(sh), n]
+                               for (op, sh), n in C.census.items())}
+    return torch.stack(out), fed, census
+
+
+def p16_compare(torch, want, got):
+    """{"err": max |got - want| / max |want|, "rms": rms(got - want) /
+    rms(want), "flips": [(step, tp 1's gap between its argmax and got's)]
+    where the argmax differs}."""
+    d = got - want
+    flips = []
+    for i in range(want.shape[0]):
+        a, b = int(want[i].argmax()), int(got[i].argmax())
+        if a != b:
+            flips.append((i, float(want[i, a] - want[i, b])))
+    return {"err": float(d.abs().max() / want.abs().max()),
+            "rms": float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()),
+            "flips": flips}
+
+
+def p16_bf16_partials(torch, tm, n_vocab: int):
+    """A stand-in for models/model.py's reduce_from_tp that rounds a
+    row-parallel projection's partials to bf16 and their sum again (an
+    all-reduce of bf16 values); the logits pass unchanged."""
+    reduce = tm.reduce_from_tp
+
+    def bf16_partials(x, tp):
+        if x.shape[-1] == n_vocab:
+            return reduce(x, tp)
+        return reduce(x.to(torch.bfloat16).float(), tp).to(
+            torch.bfloat16).float()
+    return bf16_partials
+
+
+def p16_row_proj(torch, tm, full, local, tp, dev):
+    """Layer 0's decoder w1 (row-parallel, bf16) on a seeded (4, 4 S)
+    input at tp n against one device: the share of output elements that
+    differ, with the partials reduced in f32 (models/model.py::_row_proj)
+    and with them reduced in bf16 (p16_bf16_partials)."""
+    mlp = full["decoder"]["blocks"]["mlp"]
+    mine = local["decoder"]["blocks"]["mlp"]
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (4, mlp["w1"].shape[1]), dtype=np.float32)).to(dev, torch.bfloat16)
+    n = mine["w1"].shape[1]
+    xl = x[:, tp.rank * n:(tp.rank + 1) * n]
+    want = tm._proj(x, mlp["w1"][0], mlp["b1"][0], torch.bfloat16)
+    got = tm._row_proj(xl, mine["w1"][0], mine["b1"][0], torch.bfloat16, tp)
+    reduce = tm.reduce_from_tp
+    tm.reduce_from_tp = p16_bf16_partials(torch, tm, -1)
+    try:
+        bad = tm._row_proj(xl, mine["w1"][0], mine["b1"][0], torch.bfloat16,
+                           tp)
+    finally:
+        tm.reduce_from_tp = reduce
+    return [float((y != want).float().mean()) for y in (got, bad)]
+
+
+def p16_full(torch, ctx, tparams, audio, at=None):
+    """``ctx.full`` with spies on the window loop's K5 and K6
+    (decode/window.py): (segments, every launch's rows -- K5's token or
+    K6's top-K ids a row --, the inputs of launch ``at`` if it is K5's)."""
+    from godot_whisper_tpu_torch.decode import window
+    k5, k6 = window.fused_filter_sample, window.fused_filter_topk
+    toks, seen = [], {}
+
+    def spy5(logits, suppress, state, **kw):
+        if len(toks) == at:
+            seen.update(logits=logits.clone(), suppress=suppress,
+                        state=state.clone(), kw=kw)
+        out = k5(logits, suppress, state, **kw)
+        toks.append(out.token.tolist())
+        return out
+
+    def spy6(logits, suppress, state, **kw):
+        out = k6(logits, suppress, state, **kw)
+        toks.append(out.ids.tolist())
+        return out
+    window.fused_filter_sample, window.fused_filter_topk = spy5, spy6
+    try:
+        segs = ctx.full(tparams, audio)
+    finally:
+        window.fused_filter_sample, window.fused_filter_topk = k5, k6
+    torch.cuda.synchronize()
+    return segs, toks, seen
+
+
+def k5_scores(torch, seen):
+    """K5's decision scores of one launch's rows, in logit units, from its
+    plain version (ops/filter_sample.py): the filtered log-probs, and at
+    t > 0 on a sampled row, plus the Gumbel noise, times t."""
+    from godot_whisper_tpu_torch.ops.filter_sample import (
+        _filtered_logprobs, gumbel_hash_noise)
+    kw = dict(seen["kw"])
+    seed, t = kw.pop("seed"), kw["temperature"]
+    logits, state = seen["logits"], seen["state"]
+    lp, _, live, _ = _filtered_logprobs(logits, seen["suppress"], state,
+                                        **kw)
+    if t > 0:
+        B, V = logits.shape
+        noisy = torch.where(live, lp + gumbel_hash_noise(
+            seed, B, V, logits.device), torch.full_like(lp, -1e30))
+        lp = torch.where((state[:, 6] != 0)[:, None], lp, noisy) * t
+    return lp.cpu()
+
+
+def p16_flip(torch, one, two, tparams, audio, toks1, toks2):
+    """The first K5 launch whose tokens differ between tp 1 (``one``) and
+    tp n (``two``), after the same launches (so the same prefix): its
+    index, row, temperature and two tokens; "gap", K5's score of tp 1's
+    token minus tp n's on tp 1's inputs, and "gap_tpn", the mirror on tp
+    n's; the logits' max |tp n - tp 1| over max |tp 1| there.  Runs both
+    ``full`` calls again to read that launch's inputs.  None when every
+    launch agrees; a gap of None where the launch is K6's."""
+    k = next((i for i, (a, b) in enumerate(zip(toks1, toks2)) if a != b),
+             None)
+    if k is None:
+        return None
+    r = next(j for j, (a, b) in enumerate(zip(toks1[k], toks2[k])) if a != b)
+    a, b = toks1[k][r], toks2[k][r]
+    if isinstance(a, list):
+        return {"launch": k, "row": r, "kernel": "K6", "tokens": [a, b],
+                "gap": None}
+    _, _, in1 = p16_full(torch, one, tparams, audio, at=k)
+    _, _, in2 = p16_full(torch, two, tparams, audio, at=k)
+    s1, s2 = k5_scores(torch, in1)[r], k5_scores(torch, in2)[r]
+    l1, l2 = in1["logits"][r].cpu(), in2["logits"][r].cpu()
+    return {"launch": k, "row": r, "kernel": "K5",
+            "temperature": in1["kw"]["temperature"],
+            "tokens": [a, b], "gap": float(s1[a] - s1[b]),
+            "gap_tpn": float(s2[b] - s2[a]),
+            "logit_err": float((l2 - l1).abs().max() / l1.abs().max())}
+
+
+def p16_tokens_case(torch, one, two, tparams, audio, zero, read,
+                    around=contextlib.nullcontext):
+    """``full`` at tp n (counted, inside ``around()``) and at tp 1, with
+    the first K5 / K6 launch that differs (p16_flip): {"launches",
+    "by_group", "equal_tp1", "n_tokens" (tp 1's emitted), "n_decoded" (tp
+    1's launches' rows), "segs", "segs1", "same_launches", "flip",
+    "tpn_s", "tp1_s"}."""
+    zero(two)
+    t0 = time.perf_counter()
+    with around():
+        segs2, toks2, _ = p16_full(torch, two, tparams, audio)
+    r = {"tpn_s": time.perf_counter() - t0}
+    r["launches"], r["by_group"] = read()
+    t0 = time.perf_counter()
+    segs1, toks1, _ = p16_full(torch, one, tparams, audio)
+    r["tp1_s"] = time.perf_counter() - t0
+    r.update(equal_tp1=seg_view(segs2) == seg_view(segs1),
+             n_tokens=n_tokens(segs1), n_decoded=sum(map(len, toks1)),
+             segs=[list(map(list, seg_view(segs2)))],
+             segs1=[list(map(list, seg_view(segs1)))],
+             same_launches=len(toks1) == len(toks2),
+             flip=p16_flip(torch, one, two, tparams, audio, toks1, toks2))
+    return r
+
+
+def p16_nccl(torch, gt, rank, world, dev):
+    """(a) a world of 1 on NCCL: one all-reduce through the collectives,
+    and MultiHostBatchTranscriber against BatchTranscriber on 3 clips."""
+    import torch.distributed as dist
+    from godot_whisper_tpu_torch.parallel import collectives as C
+    from godot_whisper_tpu_torch.parallel import dist as gd
+    from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
+    mesh = gd.stream_mesh(tp=1, device=dev)
+    x = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    C.all_reduce(x, C.Group(dist.group.WORLD, 1, 0), "nccl")
+    torch.cuda.synchronize()
+    cfg = gt.get_config("tiny.en")
+    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0, mesh=mesh)
+    audio = frozen_audio(60.0)
+    clips = [audio[:16000 * 12], audio[16000 * 12:16000 * 30],
+             audio[16000 * 30:16000 * 55]]
+    tparams = gt.TranscribeParams(no_timestamps=True,
+                                  max_tokens=P16_MAX_TOKENS)
+    want = BatchTranscriber(ctx).transcribe(clips, tparams)
+    got = gd.MultiHostBatchTranscriber(ctx, mesh).transcribe(clips, tparams)
+    return {"backend": dist.get_backend(), "reduce_ok": x.tolist() == [
+        0.0, 1.0, 2.0, 3.0], "equal": [seg_view(g) == seg_view(w)
+                                       for g, w in zip(got, want)],
+        "n_segments": [len(w) for w in want],
+        "n_tokens": [n_tokens(w) for w in want]}
+
+
+def p16_tp_dp(torch, gt, rank, world, dev):
+    """(b) tp 2 at tiny.en's full width, (c) dp 2 with ragged counts,
+    (d) beam and int8 at tp 2; two ranks on gloo."""
+    from godot_whisper_tpu_torch.decode.params import beam_params
+    from godot_whisper_tpu_torch.models import model as tm
+    from godot_whisper_tpu_torch.parallel import dist as gd
+    from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
+    _, zero, read = launch_counters(torch)
+    mesh = gd.stream_mesh(tp=2, device=dev)
+    cfg = gt.get_config("tiny.en")
+    audio = frozen_audio(34.0)
+    res = {"device": str(mesh.device)}
+    bh = []
+    flash = tm.flash_attention_bh
+
+    def spy(q, k, v, t_valid=None):
+        bh.append(q.shape[0])
+        return flash(q, k, v, t_valid=t_valid)
+
+    @contextlib.contextmanager
+    def k2_spy():
+        """K2's B x H over the tp 2 run (models/model.py calls it)."""
+        tm.flash_attention_bh, bh[:] = spy, []
+        try:
+            yield
+        finally:
+            tm.flash_attention_bh = flash
+
+    # (b) f32, then bf16: the default ladder
+    tparams = gt.TranscribeParams(max_tokens=P16_MAX_TOKENS)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        params = gt.init_params(cfg, seed=0, compute_dtype=dtype, device=dev)
+        one = gt.WhisperContext.from_params(cfg, params, device=dev)
+        two = gt.WhisperContext.from_params(cfg, params, mesh=mesh)
+        want, fed, _ = p16_decode20(torch, gt, one, audio)
+        got, _, census = p16_decode20(torch, gt, two, audio, fed)
+        r = {"logits": p16_compare(torch, want, got), "census": census}
+        if dtype == torch.bfloat16:
+            reduce = tm.reduce_from_tp
+            tm.reduce_from_tp = p16_bf16_partials(torch, tm, cfg.n_vocab)
+            try:
+                bad, _, _ = p16_decode20(torch, gt, two, audio, fed)
+            finally:
+                tm.reduce_from_tp = reduce
+            r["bf16_partials"] = p16_compare(torch, want, bad)
+            r["row_share"] = p16_row_proj(torch, tm, params,
+                                          two.pipeline.params,
+                                          mesh.tp_group, dev)
+        r.update(p16_tokens_case(torch, one, two, tparams, audio, zero,
+                                 read, around=k2_spy))
+        r["k2_bh"] = sorted(set(bh))
+        res[name] = r
+        del one, two
+
+    # (c) dp 2: ragged counts, f32, the t = 0 rung
+    dp_mesh = gd.stream_mesh(tp=1, device=dev)
+    ctx = gt.WhisperContext.synthetic("tiny.en", seed=0, device=dev,
+                                      compute_dtype=torch.float32)
+    clips = [audio[16000 * i:16000 * (i + 6 + 2 * i)] for i in range(4)]
+    greedy = gt.TranscribeParams(best_of=1, temperature_inc=0.0, **P16_LONG)
+    want = [seg_view(s) for s in BatchTranscriber(ctx).transcribe(clips,
+                                                                   greedy)]
+    mht = gd.MultiHostBatchTranscriber(ctx, dp_mesh)
+    res["dp"] = {}
+    for counts in ([3, 1], [3, 0]):
+        base = sum(counts[:rank])
+        got = mht.transcribe(clips[base:base + counts[rank]], greedy)
+        res["dp"][str(counts)] = {
+            "n": len(got), "equal": [seg_view(g) == want[base + i]
+                                     for i, g in enumerate(got)],
+            "n_tokens": [sum(len(s[3]) for s in want[base + i])
+                         for i in range(len(got))]}
+    del ctx, mht
+
+    # (d) beam 5 (f32) and int8 weights with the int8 cross-KV (bf16) at
+    # tp 2, 20 s
+    cases = {"beam": (torch.float32, None, beam_params(
+                 beam_size=5, best_of=5, temperature_inc=0.0, **P16_LONG)),
+             "int8": (torch.bfloat16, "int8", gt.TranscribeParams(
+                 cross_kv_int8=True, best_of=1, temperature_inc=0.0,
+                 **P16_LONG))}
+    clip = audio[:16000 * 20]
+    for name, (dtype, quant, tp_) in cases.items():
+        params = gt.init_params(cfg, seed=0, compute_dtype=dtype, device=dev)
+        one = gt.WhisperContext.from_params(cfg, params, device=dev,
+                                            quantize=quant)
+        two = gt.WhisperContext.from_params(cfg, params, quantize=quant,
+                                            mesh=mesh)
+        r = p16_tokens_case(torch, one, two, tp_, clip, zero, read)
+        if quant:
+            want, fed, _ = p16_decode20(torch, gt, one, clip, quant_kv=True)
+            zero(two)
+            got, _, _ = p16_decode20(torch, gt, two, clip, fed,
+                                     quant_kv=True)
+            r["logits"] = p16_compare(torch, want, got)
+            r["logits_launches"] = read()[0]
+        res[name] = r
+        del one, two
+    return res
+
+
+def p16_four(torch, gt, rank, world, dev):
+    """Four ranks on gloo: (d) large-v3 widths cut to 2 + 2 layers at
+    tp 4 (5 heads a rank), f32, against tp 1: the logits of a prompt pass
+    and 20 steps, and beam 5 over 10 s; (e) training."""
+    from godot_whisper_tpu_torch.decode.params import beam_params
+    from godot_whisper_tpu_torch.parallel import dist as gd
+    _, zero, read = launch_counters(torch)
+    wide = gt.get_config("large-v3").replace(n_audio_layer=2, n_text_layer=2)
+    params = gt.init_params(wide, seed=0, compute_dtype=torch.float32,
+                            device=dev)
+    tparams = beam_params(beam_size=5, best_of=5, temperature_inc=0.0,
+                          **P16_LONG)
+    audio = frozen_audio(10.0)
+    one = gt.WhisperContext.from_params(wide, params, device=dev)
+    four = gt.WhisperContext.from_params(wide, params,
+                                         mesh=gd.stream_mesh(tp=4, device=dev))
+    want, fed, _ = p16_decode20(torch, gt, one, audio)
+    got, _, census = p16_decode20(torch, gt, four, audio, fed)
+    large = p16_tokens_case(torch, one, four, tparams, audio, zero, read)
+    large.update(logits=p16_compare(torch, want, got), census=census)
+    del one, four, params
+    return {"large": large, "train": p16_train(torch, gt, rank, world, dev)}
+
+
+def adam_tol(opt, lr: float, limit: float) -> dict:
+    """Per-element tolerance of the params after an AdamW step whose
+    moments are off by up to ``limit`` of each leaf's largest first moment
+    (tests/test_torch_training.py's rule): lr (1e-4 + 2 limit m_hat /
+    (sqrt(v_hat) + eps)), by leaf, on the host.  Where the gradient is as
+    small as its own error it allows a large share of a step."""
+    from godot_whisper_tpu_torch.models.params import tree_leaves
+    c = opt.count
+    nu = dict(tree_leaves(opt.nu))
+    out = {}
+    for k, m in tree_leaves(opt.mu):
+        m_hat = float(m.float().abs().max()) / (1 - 0.9 ** c)
+        v_hat = nu[k].float().cpu() / (1 - 0.999 ** c)
+        out["/".join(k)] = lr * (1e-4 + 2 * limit * m_hat
+                                 / (v_hat.sqrt() + 1e-8))
+    return out
+
+
+def p16_train(torch, gt, rank, world, dev):
+    """(e) dp 2 x tp 2 train_step on phase 15's batch, gathered to rank 0
+    and held to the single-process step on the card."""
+    import torch.distributed as dist
+    from godot_whisper_tpu_torch.audio.mel import MelFrontend, mel_filterbank
+    from godot_whisper_tpu_torch.models import training as tt
+    from godot_whisper_tpu_torch.models.params import tree_leaves, tree_map
+    from godot_whisper_tpu_torch.parallel.sharding import (
+        batch_sharding, make_mesh, shard_params, unshard_params)
+
+    def host(tree):
+        return tree_map(lambda _, x: x.cpu(), tree)
+    mesh = make_mesh(2, 2, device=dev)
+    dev = mesh.device
+    cfg = gt.get_config("tiny.en")
+    audio = frozen_audio(320.0)
+    mel, _ = MelFrontend(mel_filterbank(cfg.n_mels), dev).device_batch(
+        [audio[i * 480000:(i + 1) * 480000] for i in range(8)])
+    batch = train_batch(torch, cfg, mel, 64, np.random.default_rng(15), dev)
+    rows = batch_sharding(mesh, 8)
+    local_batch = {k: v[rows] for k, v in batch.items()}
+    res = {}
+    for dtype, limit in ((torch.float32, TRAIN_F32_LIMIT),
+                         (torch.bfloat16, TRAIN_BF16_LIMIT)):
+        full = gt.init_params(cfg, seed=0, compute_dtype=dtype, device=dev)
+        local = shard_params(full, mesh, cfg)
+        loss, grads = tt.loss_and_grads(local, cfg, local_batch, device=dev,
+                                        mesh=mesh)
+        state = tt.init_train_state(local, lr=P16_LR)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = tt.train_step(state, cfg, local_batch, device=dev,
+                                     mesh=mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mine = (mesh.tp_index, host(grads), host(state.params))
+        every = [None] * world if rank == 0 else None
+        dist.gather_object(mine, every, dst=0, group=mesh.host_group)
+        r = {"loss": float(loss), "ms": ms}
+        if rank == 0:
+            shard = sorted(every[:2], key=lambda e: e[0])
+            g_tp = unshard_params([e[1] for e in shard], cfg)
+            p_tp = unshard_params([e[2] for e in shard], cfg)
+            ref_loss, g_ref = tt.loss_and_grads(full, cfg, batch, device=dev)
+            ref, tol = tt.init_train_state(full, lr=P16_LR), {}
+            for _ in range(2):
+                ref, _ = tt.train_step(ref, cfg, batch, device=dev)
+                for k, t in adam_tol(ref.opt_state, P16_LR, limit).items():
+                    tol[k] = tol.get(k, 0) + t
+            ge = grad_errors(g_tp, host(g_ref))
+            pe = grad_errors(p_tp, host(ref.params))
+            # a bf16 leaf that starts at zero (biases, LayerNorm shifts)
+            # is after Adam's first steps about lr times its gradients'
+            # signs, so it is held element by element to adam_tol plus two
+            # bf16 ulps of the reference, not to the leaf's norm
+            zero_init = {"/".join(k) for k, x in tree_leaves(full)
+                         if dtype == torch.bfloat16 and not bool(x.any())}
+            want = {"/".join(k): x.float() for k, x in
+                    tree_leaves(host(ref.params))}
+            excess = {}
+            for k, x in tree_leaves(p_tp):
+                k = "/".join(k)
+                if k in zero_init:
+                    w = want[k]
+                    bound = tol[k] + 2 * w.abs() * torch.finfo(dtype).eps
+                    excess[k] = float(((x.float() - w).abs() / bound).max())
+            # the other dp shard's tp ranks hold the same trees
+            other = unshard_params(
+                [e[1] for e in sorted(every[2:], key=lambda e: e[0])], cfg)
+            r.update(ref_loss=float(ref_loss),
+                     grad_worst=max(ge.items(), key=lambda kv: kv[1]),
+                     param_worst=max(((k, v) for k, v in pe.items()
+                                      if k not in zero_init),
+                                     key=lambda kv: kv[1]),
+                     zero_init_norm_worst=max(
+                         ((k, pe[k]) for k in zero_init),
+                         key=lambda kv: kv[1], default=None),
+                     zero_init_excess=max(excess.items(),
+                                          key=lambda kv: kv[1],
+                                          default=None),
+                     n_zero_init=len(zero_init),
+                     dp_equal=all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                         tree_leaves(g_tp), tree_leaves(other))))
+        res[str(dtype)[6:]] = r
+        del full, local, grads, state
+    return res
+
+
+P16_WORKERS = {"a": (p16_nccl, "nccl"), "bcd": (p16_tp_dp, "gloo"),
+               "de": (p16_four, "gloo")}
+
+
+def p16_worker(argv) -> int:
+    """One rank of a phase 16 sub-run: ``chip_smoke.py --phase16-worker
+    SUB RANK WORLD PORT OUT_DIR``, on card 0 (every rank shares it);
+    writes OUT_DIR/SUB-RANK.json."""
+    sub, rank, world, port, out = argv
+    rank, world = int(rank), int(world)
+    dev = "cuda:0"
+    import torch
+    import torch.distributed as dist
+    fn, backend = P16_WORKERS[sub]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    import godot_whisper_tpu_torch as gt
+    res = fn(torch, gt, rank, world, dev)
+    with open(os.path.join(out, f"{sub}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def p16_run(sub: str, world: int, tmp: str) -> list:
+    """``world`` ranks of sub-run ``sub`` (parallel/procs.py: each with a
+    timeout, the first to fail kills the others); a failure fails the
+    phase.  Returns their results."""
+    from godot_whisper_tpu_torch.parallel import procs
+    port = procs.free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(tmp, sub)
+    os.makedirs(logs, exist_ok=True)
+    try:
+        procs.run_procs(
+            [[sys.executable, os.path.abspath(__file__), "--phase16-worker",
+              sub, str(r), str(world), str(port), tmp] for r in range(world)],
+            logs, timeout=P16_TIMEOUT, cwd=here)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        fail(f"phase 16 ({sub}): a rank of {world} failed")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{sub}-{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_tokens(what: str, d: dict, limit: float,
+                 emitted: bool = False) -> None:
+    """A tp n run's tokens against tp 1's (p16_tokens_case): at least
+    P16_MIN_TOKENS decoded rows (and emitted tokens with ``emitted``);
+    segments and launches equal, or else diverged at a K5 launch whose
+    gap is at most TP_FLIP_GAP and whose logits are within ``limit``."""
+    f = d["flip"]
+    log(f"phase 16 {what}: segments equal tp 1 {d['equal_tp1']} "
+        f"({d['n_tokens']} tokens); every K5 / K6 launch's rows compared, "
+        f"{d['n_decoded']} rows, launches as many {d['same_launches']}, "
+        f"first that differs {f}")
+    if d["n_decoded"] < P16_MIN_TOKENS or (emitted and d["n_tokens"]
+                                            < P16_MIN_TOKENS):
+        fail(f"phase 16 {what}: fewer than {P16_MIN_TOKENS} tokens "
+             "compared")
+    if d["equal_tp1"] and f is None:
+        return
+    if not d["equal_tp1"] and f is None:
+        fail(f"phase 16 {what}: the segments differ from tp 1's with every "
+             "K5 launch equal")
+    if (f["gap"] is None or f["gap"] > TP_FLIP_GAP or f["gap"] < 0
+            or f["gap_tpn"] < 0 or f["logit_err"] > limit):
+        fail(f"phase 16 {what}: a token differs from tp 1's at a K5 gap of "
+             f"{f['gap']} (limit {TP_FLIP_GAP})")
+
+
+def check_logits(what: str, c: dict, limit: float) -> None:
+    """Teacher-forced logits (p16_compare) within ``limit``, each argmax
+    that differs a near tie."""
+    log(f"phase 16 {what}: logits of a prompt pass + 20 steps vs tp 1: max "
+        f"{c['err']} (limit {limit}), rms {c['rms']}, argmax flips "
+        f"{c['flips']}")
+    if c["err"] > limit or any(gap > TP_FLIP_GAP for _, gap in c["flips"]):
+        fail(f"phase 16 {what}: logits off tp 1's past the limit")
+
+
+def check_multi_device(torch, gt, tmp):
+    """Phase 16: multiple processes on the card (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = gt.get_config("tiny.en")
+
+    # (a) NCCL, one rank
+    (a,) = p16_run("a", 1, tmp)
+    log(f"phase 16 (a) [{card}] NCCL world 1: backend {a['backend']}, "
+        f"all_reduce ok {a['reduce_ok']}; MultiHostBatchTranscriber vs "
+        f"BatchTranscriber on 3 tiny.en bf16 clips (segments "
+        f"{a['n_segments']}, tokens {a['n_tokens']}): equal {a['equal']}")
+    if a["backend"] != "nccl" or not a["reduce_ok"] or not all(a["equal"]):
+        fail("phase 16 (a): the NCCL run failed or differs from "
+             "BatchTranscriber")
+    if min(a["n_tokens"]) < P16_MIN_TOKENS:
+        fail(f"phase 16 (a): a clip compared fewer than {P16_MIN_TOKENS} "
+             "tokens")
+
+    # (b)-(d) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    ranks = p16_run("bcd", 2, tmp)
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        for name, limit in (("float32", TP_F32_LIMIT),
+                            ("bfloat16", TP_BF16_LIMIT)):
+            b = r[name]
+            c = b["census"]
+            what = f"(b) [{card}] rank {rank} tp 2 tiny.en {name}"
+            check_logits(what, b["logits"], limit)
+            if name == "bfloat16":
+                bad = b["bf16_partials"]
+                log(f"phase 16 {what}: with the row-parallel partials "
+                    f"reduced in bf16, logits vs tp 1: max {bad['err']}, rms "
+                    f"{bad['rms']}")
+                share, share_bad = b["row_share"]
+                log(f"phase 16 {what}: decoder w1 (row-parallel) on a seeded "
+                    f"(4, 1536) input, share of bf16 outputs off one "
+                    f"device's: {share} (limit {TP_ROW_SHARE}), with the "
+                    f"partials reduced in bf16 {share_bad}")
+                if share > TP_ROW_SHARE or share_bad <= TP_ROW_SHARE:
+                    fail("phase 16 (b): the row-parallel projection is off "
+                         "one device's, or the check misses partials "
+                         "reduced in bf16")
+            log(f"phase 16 {what}: full(34 s, max_tokens "
+                f"{P16_MAX_TOKENS}) {b['tpn_s']} s (tp 1 {b['tp1_s']} s; two "
+                f"processes share one card over gloo: not a speed-up); "
+                f"launches {b['launches']}, decode_attention by kv_group "
+                f"{b['by_group']}, K2 at B*H {b['k2_bh']}; census of one "
+                f"step {c['summary']}")
+            check_tokens(what, b, limit)
+            if name == "float32" and not b["equal_tp1"]:
+                fail("phase 16 (b): f32 tp 2 segments differ from tp 1's")
+            if not b["equal_tp1"]:
+                log(f"phase 16 {what} segments, tp 2 {b['segs']} against "
+                    f"tp 1 {b['segs1']}")
+            n = b["launches"]
+            if not (n["log_mel_raw"] and n["flash_attention_bh"]
+                    and n["fused_filter_sample"]
+                    and b["by_group"].get("1") and b["by_group"].get("5")
+                    and b["k2_bh"] == [3]):
+                fail("phase 16 (b): K1-K5 did not all launch, or K2 not at "
+                     "B x 3 heads")
+            s = c["summary"]
+            if (s["count"] != 3 * cfg.n_text_layer + 2
+                    or s["max_elements"] != cfg.n_vocab
+                    or ["reduce", [1, cfg.n_vocab], 1] not in c["shapes"]
+                    or s["max_elements"] >= c["kv_numel"]):
+                fail("phase 16 (b): the step's collectives are not 3 L + 2 "
+                     "all-reduces with the (B, V) logits the largest")
+        for counts, d in r["dp"].items():
+            log(f"phase 16 (c) [{card}] rank {rank} dp 2 counts {counts}: "
+                f"{d['n']} clips, equal to BatchTranscriber {d['equal']} "
+                f"(tokens by clip {d['n_tokens']})")
+            if d["n"] != json.loads(counts)[rank] or not all(d["equal"]):
+                fail("phase 16 (c): a rank's segments differ from "
+                     "BatchTranscriber's")
+        for name, want in (("beam", ("fused_filter_topk",
+                                     "split_beam_attention")),
+                           ("int8", ("quant_matmul_io_rows",
+                                     "quant_matmul_oi_rows",
+                                     "xattn_q_packed"))):
+            d = r[name]
+            what = f"(d) [{card}] rank {rank} tp 2 {name}"
+            log(f"phase 16 {what}: launches {d['launches']}, by kv_group "
+                f"{d['by_group']}")
+            check_tokens(what, d, TP_BF16_LIMIT if name == "int8"
+                         else TP_F32_LIMIT, emitted=True)
+            if name == "beam" and not d["equal_tp1"]:
+                fail("phase 16 (d): f32 beam at tp 2 differs from tp 1")
+            if not all(d["launches"][k] for k in want):
+                fail(f"phase 16 (d): the tp 2 {name} path missed a kernel")
+        if not r["beam"]["by_group"].get("5"):
+            fail("phase 16 (d): beam at tp 2 did not launch K4 at kv_group "
+                 "5")
+        check_logits(f"(d) [{card}] rank {rank} tp 2 int8",
+                     r["int8"]["logits"], TP_BF16_LIMIT)
+        n8 = r["int8"]["logits_launches"]
+        if not (n8["quant_matmul_io_rows"] and n8["quant_matmul_oi_rows"]
+                and n8["xattn_q_packed"]):
+            fail("phase 16 (d): the int8 logits did not run K9 and K12")
+    if any(n < P16_MIN_TOKENS for r in ranks for d in r["dp"].values()
+           for n in d["n_tokens"]):
+        fail(f"phase 16 (c): a clip compared fewer than {P16_MIN_TOKENS} "
+             "tokens")
+    for name in ("float32", "bfloat16", "beam", "int8"):
+        if ranks[0][name]["segs"] != ranks[1][name]["segs"]:
+            fail(f"phase 16: the ranks' {name} segments differ")
+    log(f"phase 16 (b)-(d): {wall:.1f} s for the two ranks")
+
+    # (d) large-v3 widths at tp 4 and (e) training, dp 2 x tp 2: four
+    # ranks on the card
+    four = p16_run("de", 4, tmp)
+    for rank, r in enumerate(four):
+        d = r["large"]
+        what = (f"(d) [{card}] rank {rank} tp 4 large-v3 widths (S 1280, 5 "
+                "of 20 heads a rank) cut to 2 + 2 layers, f32")
+        check_logits(what, d["logits"], TP_F32_LIMIT)
+        shown = {k: d["launches"][k] for k in (
+            "log_mel_raw", "flash_attention_bh", "fused_filter_topk",
+            "split_beam_attention", "reorder_kv_live")}
+        log(f"phase 16 {what}: census of one step {d['census']['summary']}; "
+            f"beam 5, 10 s, {d['tpn_s']} s (not a speed-up), launches "
+            f"{shown}, by kv_group {d['by_group']}")
+        check_tokens(what, d, TP_F32_LIMIT, emitted=True)
+        if (d["logits"]["flips"] or not d["equal_tp1"]
+                or d["census"]["summary"]["count"] != 3 * 2 + 2
+                or not (d["launches"]["fused_filter_topk"]
+                        and d["launches"]["split_beam_attention"]
+                        and d["by_group"].get("5"))
+                or d["segs"] != four[0]["large"]["segs"]):
+            fail("phase 16 (d): large-v3 widths at tp 4 differ from tp 1, "
+                 "between ranks, or missed K6 / K7 / K4")
+    e = [r["train"] for r in four]
+    for name, limit in (("float32", TRAIN_F32_LIMIT),
+                        ("bfloat16", TRAIN_BF16_LIMIT)):
+        r0 = e[0][name]
+        log(f"phase 16 (e) [{card}] dp 2 x tp 2 train_step tiny.en {name} "
+            f"B 8 (4 + 4) T 64: loss {r0['loss']} vs one process "
+            f"{r0['ref_loss']}; gathered gradients vs one process: worst "
+            f"leaf {r0['grad_worst']}; params after two steps: worst leaf "
+            f"{r0['param_worst']} (limit {limit}); the {r0['n_zero_init']} "
+            f"leaves that start at zero, held element by element: worst "
+            f"|diff| / (Adam's tolerance + 2 ulps) "
+            f"{r0['zero_init_excess']} (limit 1), by the leaf's norm "
+            f"{r0['zero_init_norm_worst']}; the dp shards' gradients equal "
+            f"{r0['dp_equal']}; ms a step by rank "
+            f"{[x[name]['ms'] for x in e]} (four processes share one card "
+            f"over gloo: not a speed-up)")
+        if (r0["grad_worst"][1] > limit or r0["param_worst"][1] > limit
+                or (r0["zero_init_excess"] is not None
+                    and r0["zero_init_excess"][1] > 1.0)
+                or not r0["dp_equal"]
+                or any(x[name]["loss"] != r0["loss"] for x in e)):
+            fail(f"phase 16 (e): {name} dp x tp training off the "
+                 "one-process step")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -1977,19 +2808,6 @@ def main() -> int:
         return 2
     import godot_whisper_tpu_torch as gt
     from godot_whisper_tpu_torch.ops import kernels
-    from godot_whisper_tpu_torch.ops.attention import (flash_attention_bh,
-                                                       flash_attention_long)
-    from godot_whisper_tpu_torch.ops.cross_attention import (xattn_q_packed,
-                                                             xattn_q_wide)
-    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
-    from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
-                                                           fused_filter_topk)
-    from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
-    from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
-    from godot_whisper_tpu_torch.ops.qmatmul import (quant_matmul,
-                                                     quant_matmul4)
-    from godot_whisper_tpu_torch.ops.split_attention import \
-        split_beam_attention
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -2021,39 +2839,7 @@ def main() -> int:
 
     # every launch counter is set to 0 just before a path is driven and
     # read just after it
-    counters = (log_mel_raw, flash_attention_bh, decode_attention,
-                fused_filter_sample, fused_filter_topk, split_beam_attention,
-                reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
-                xattn_q_packed, flash_attention_long)
-
-    def zero(c):
-        """Every launch counter to 0, and ``c``'s timings (if any)."""
-        for fn in counters:
-            fn.launches = 0
-        for cnt in (decode_attention.group_launches,
-                    decode_attention.rows_launches,
-                    flash_attention_bh.ctx_launches,
-                    quant_matmul.layout_launches,
-                    quant_matmul.route_launches,
-                    quant_matmul4.route_launches,
-                    xattn_q_packed.mode_launches):
-            cnt.clear()
-        if c is not None:
-            c.timings.reset()
-        torch.cuda.synchronize()
-
-    def read():
-        """(launches by kernel and route, decode_attention launches by
-        kv_group) since the last ``zero``."""
-        torch.cuda.synchronize()
-        n = {fn.__name__: fn.launches for fn in counters}
-        n["quant_matmul_oi"] = quant_matmul.layout_launches["oi"]
-        for route in ("io_rows", "oi_rows", "tc"):
-            n[f"quant_matmul_{route}"] = quant_matmul.route_launches[route]
-        for route in ("rows", "tc"):
-            n[f"quant_matmul4_{route}"] = quant_matmul4.route_launches[route]
-        n["xattn_q_packed_w8a8"] = xattn_q_packed.mode_launches["w8a8"]
-        return n, dict(decode_attention.group_launches)
+    counters, zero, read = launch_counters(torch)
 
     def drive(what, c, tparams, audio_s):
         zero(c)
@@ -2165,6 +2951,9 @@ def main() -> int:
 
         # ---- phase 15: training
         check_training(torch, gt, zero, read)
+
+        # ---- phase 16: multiple processes on the card
+        check_multi_device(torch, gt, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2239,4 +3028,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase16-worker"]:
+        sys.exit(p16_worker(sys.argv[2:]))
     sys.exit(main())

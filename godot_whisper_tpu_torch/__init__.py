@@ -24,6 +24,14 @@ Quantized decoding: ``synthetic(..., quantize="int8" | "int4" |
 bits, and ``TranscribeParams(cross_kv_int8=True)`` the cross-attention K/V
 in 8 bits.
 
+Multiple devices: every constructor takes ``mesh=`` (a ``parallel.sharding.
+Mesh`` from ``parallel.dist.stream_mesh`` after ``parallel.dist.
+initialize``, one process per device); the context then holds this rank's
+tensor-parallel slices and every rank of the tp group runs the same calls.
+``parallel.dist.MultiHostBatchTranscriber`` batches clips data-parallel
+across processes, and ``models.training.train_step(..., mesh=)`` trains on
+a dp x tp mesh.
+
 Serving: ``parallel.batch.BatchTranscriber`` decodes many clips as one
 batch of streams, ``full_parallel`` splits one clip into chunks decoded
 together, ``runtime.streaming.StreamingTranscriber`` transcribes audio
@@ -76,76 +84,90 @@ class WhisperContext:
                     tokenizer: Optional[Tokenizer] = None,
                     mel_filters: Optional[np.ndarray] = None,
                     n_loaded: int = 1,
-                    quantize: Optional[str] = None) -> "WhisperContext":
+                    quantize: Optional[str] = None,
+                    mesh=None) -> "WhisperContext":
         """Wrap a parameter tree (``models.params`` layout) in a context on
         ``device``, its decoder quantized as ``quantize`` asks (see
         ``_quantize``).  The tokenizer defaults to the synthetic vocab and
-        the filterbank to the Slaney mel filters."""
-        dev = resolve_device(device)
+        the filterbank to the Slaney mel filters.  With a ``mesh`` the full
+        tree is quantized, then sharded to this rank's slices
+        (``parallel.sharding.shard_params``) on the mesh's device."""
+        dev = _mesh_device(device, mesh)
         params = cls._quantize({k: _to_device(v, dev)
                                 for k, v in params.items()}, quantize)
+        tp = None
+        if mesh is not None:
+            from .parallel.sharding import shard_params
+            params = shard_params(params, mesh, config)
+            tp = mesh.tp_group
         tok = tokenizer or Tokenizer(config, synthetic_vocab(config))
         filters = (mel_filters if mel_filters is not None
                    else mel_filterbank(config.n_mels))
         return cls(WhisperPipeline(config, params, tok, filters,
-                                   n_loaded=n_loaded, device=dev))
+                                   n_loaded=n_loaded, device=dev, tp=tp))
 
     @classmethod
     def from_file(cls, path: str, *, compute_dtype=None,
                   quantize: Optional[str] = None,
-                  device=None) -> "WhisperContext":
+                  device=None, mesh=None) -> "WhisperContext":
         """Load a ggml .bin checkpoint (whisper_init_from_file) onto
-        ``device`` in ``compute_dtype``, quantized as ``quantize`` asks."""
+        ``device`` in ``compute_dtype``, quantized as ``quantize`` asks
+        (sharded over ``mesh``, see ``from_params``)."""
         return cls._from_raw(loader_ggml.read_checkpoint(path),
-                             compute_dtype, quantize, device)
+                             compute_dtype, quantize, device, mesh)
 
     @classmethod
     def from_buffer(cls, buf: bytes, *, compute_dtype=None,
                     quantize: Optional[str] = None,
-                    device=None) -> "WhisperContext":
+                    device=None, mesh=None) -> "WhisperContext":
         """Load an in-memory ggml model (whisper_init_from_buffer), the path
         godot-whisper takes for Godot resources."""
         return cls._from_raw(loader_ggml.read_checkpoint(bytes(buf)),
-                             compute_dtype, quantize, device)
+                             compute_dtype, quantize, device, mesh)
 
     @classmethod
     def _from_raw(cls, raw: loader_ggml.RawCheckpoint, compute_dtype,
-                  quantize: Optional[str], device) -> "WhisperContext":
+                  quantize: Optional[str], device,
+                  mesh=None) -> "WhisperContext":
         t0 = time.perf_counter()
-        dev = resolve_device(device)
+        dev = _mesh_device(device, mesh)
         params = params_from_raw(raw, compute_dtype=_dtype(compute_dtype),
                                 device=dev)
         ctx = cls.from_params(raw.config, params, device=dev,
                               tokenizer=Tokenizer(raw.config,
                                                   raw.vocab_tokens),
                               mel_filters=raw.mel_filters,
-                              n_loaded=raw.n_loaded, quantize=quantize)
+                              n_loaded=raw.n_loaded, quantize=quantize,
+                              mesh=mesh)
         ctx.timings.t_load_us = int((time.perf_counter() - t0) * 1e6)
         return ctx
 
     @classmethod
     def from_hf(cls, path: str, *, compute_dtype=None,
                 quantize: Optional[str] = None,
-                device=None) -> "WhisperContext":
+                device=None, mesh=None) -> "WhisperContext":
         """Load a local HuggingFace Whisper snapshot directory (synthetic
         vocab and Slaney filterbank, as the JAX package does)."""
         from .models.loader_hf import load_hf_checkpoint
-        dev = resolve_device(device)
+        dev = _mesh_device(device, mesh)
         config, params = load_hf_checkpoint(
             path, compute_dtype=_dtype(compute_dtype), device=dev)
-        return cls.from_params(config, params, device=dev, quantize=quantize)
+        return cls.from_params(config, params, device=dev, quantize=quantize,
+                               mesh=mesh)
 
     @classmethod
     def synthetic(cls, name: str = "tiny.en", *, seed: int = 0,
                   compute_dtype=None, device=None,
-                  quantize: Optional[str] = None) -> "WhisperContext":
+                  quantize: Optional[str] = None,
+                  mesh=None) -> "WhisperContext":
         """Random-weight model (the JAX package's ``init_params`` weights
         for the same seed) for benches and tests; no checkpoint needed."""
-        dev = resolve_device(device)
+        dev = _mesh_device(device, mesh)
         config = get_config(name)
         params = init_params(config, seed=seed,
                              compute_dtype=_dtype(compute_dtype), device=dev)
-        return cls.from_params(config, params, device=dev, quantize=quantize)
+        return cls.from_params(config, params, device=dev, quantize=quantize,
+                               mesh=mesh)
 
     @staticmethod
     def _quantize(params, quantize: Optional[str]):
@@ -277,7 +299,7 @@ class WhisperContext:
                     "start a sequence with n_past=0")
             kv = init_kv_cache(p.config, 1,
                                dtype=param_compute_dtype(p.params),
-                               device=p.device)
+                               device=p.device, tp=p.tp)
         else:
             kv, cached_past = self._decode_state
             if cached_past != n_past:
@@ -291,7 +313,7 @@ class WhisperContext:
         logits, kv = decoder_dense(
             p.params, p.config, arr, positions, kv, xkv,
             n_valid=torch.full((1,), T, dtype=torch.int32, device=p.device),
-            start=n_past)
+            start=n_past, tp=p.tp)
         self._decode_state = (kv, n_past + T)
         return logits[0, -1].float().cpu().numpy()
 
@@ -308,6 +330,12 @@ class WhisperContext:
 
     def reset_timings(self) -> None:
         self._p.timings.reset()
+
+
+def _mesh_device(device, mesh) -> torch.device:
+    """``device``, else the mesh's device, else the card."""
+    return resolve_device(device if device is not None or mesh is None
+                          else mesh.device)
 
 
 def _dtype(compute_dtype):

@@ -631,20 +631,24 @@ __global__ void __launch_bounds__(kThreads, 3)
              });
 }
 
-// The cluster attribute, once per process (clusters of 16 are not
-// portable).
+// The cluster attribute, once per device (clusters of 16 are not
+// portable; function attributes belong to the device's context).
+constexpr int kMaxDevices = 64;
+
 int cluster_attrs() {
-  static const int err = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        (const void*)filter_sample_kernel,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute((const void*)filter_topk_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-    return (int)e;
-  }();
-  return err;
+  static bool attr_set[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && attr_set[dev]) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)filter_sample_kernel,
+      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)filter_topk_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
+  return (int)e;
 }
 
 cudaLaunchConfig_t cluster_config(int C, int B, void* stream,

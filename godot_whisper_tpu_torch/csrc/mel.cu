@@ -357,6 +357,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
+constexpr int kMaxDevices = 64;
+
 extern "C" int gwt_mel_smem() { return (int)kSmemBytes; }
 
 // audio (B, L) f16; fbasis (50, 26, 32, 4) f32 fragment-ordered basis;
@@ -366,11 +368,18 @@ extern "C" int gwt_mel_smem() { return (int)kSmemBytes; }
 extern "C" int gwt_mel(const void* audio, const void* fbasis, const void* runs,
                        const void* wts, void* out, int B, int L, int F,
                        int n_mels, int n_w, int ctas, void* stream) {
-  // The shared-memory attribute, once per process.
-  static const int attr = (int)cudaFuncSetAttribute(
-      mel_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (attr != (int)cudaSuccess) return attr;
+  // The shared-memory attribute, once per device (function attributes
+  // belong to the device's context).
+  static bool attr_set[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        mel_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
   const dim3 grid(ctas, B);
   mel_tc_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const __half*)audio, (const float*)fbasis, (const int*)runs,

@@ -31,6 +31,7 @@ import torch
 
 from ..models.config import WhisperConfig
 from ..models.model import cross_kv, encoder_forward, quantize_cross_kv
+from ..parallel.collectives import tp_size
 from .filters import FilterContext
 from .window import (WindowResult, WindowStatics, prompt_pass_grouped,
                      run_decode_loop, use_split_cache)
@@ -129,11 +130,12 @@ class ClipDecoder:
     """Drives the whole-clip decode of a batch of streams."""
 
     def __init__(self, config: WhisperConfig, fctx: FilterContext,
-                 statics: ClipStatics, init_tokens: List[int]):
+                 statics: ClipStatics, init_tokens: List[int], tp=None):
         if len(init_tokens) != statics.n_init:
             raise ValueError("init_tokens length != statics.n_init")
         self.config = config
         self.fctx = fctx
+        self.tp = tp  # the mesh's tp group (models/model.py)
         self.statics = statics
         self.init_tokens = np.asarray(init_tokens, np.int32)
         self.past_cap = config.n_text_ctx // 2
@@ -159,7 +161,8 @@ class ClipDecoder:
             suppress_blank=s.suppress_blank, no_timestamps=s.no_timestamps,
             single_segment=s.single_segment, max_tokens=s.max_tokens,
             test_mode=s.test_mode, kv_group=s.n_dec,
-            strategy="beam" if beam else "greedy", beam_size=s.n_dec)
+            strategy="beam" if beam else "greedy", beam_size=s.n_dec,
+            tp=self.tp)
 
     def _build_prompt(self, past_buf, past_cnt, use_past_t: bool):
         """[prev] + past tail + task prefix per stream (whisper.cpp:5237)."""
@@ -218,10 +221,11 @@ class ClipDecoder:
             # ---- batched encode of every stream's current window
             enc = encoder_forward(params, config,
                                   mel_windows(mel, seek, n_len, n_ctx),
-                                  audio_ctx=s.audio_ctx or None)
-            xkv = cross_kv(params, config, enc)
+                                  audio_ctx=s.audio_ctx or None, tp=self.tp)
+            xkv = cross_kv(params, config, enc, tp=self.tp)
             if s.cross_int8:
-                xkv = quantize_cross_kv(xkv, config.n_text_head)
+                xkv = quantize_cross_kv(
+                    xkv, config.n_text_head // tp_size(self.tp))
 
             # stale context near the end of audio (whisper.cpp:5176-5180)
             cnt = np.where(active & (seek > seek_start)
@@ -250,7 +254,7 @@ class ClipDecoder:
                 wst = self._wst(t_idx)
                 last, kv = prompt_pass_grouped(
                     params, config, prompt_t, n_prompt, xkv, ND, n_max=N_MAX,
-                    repeat_kv=not use_split_cache(wst))
+                    repeat_kv=not use_split_cache(wst), tp=self.tp)
                 # sampling rungs seed each attempt with seed + rung index
                 ls = run_decode_loop(
                     params, config, self.fctx, wst, xkv, kv, last,

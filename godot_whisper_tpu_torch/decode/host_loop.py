@@ -49,10 +49,11 @@ class HostWindowDecoder:
     ``n_attempts`` and ``n_tokens`` count what they cover."""
 
     def __init__(self, config: WhisperConfig, fctx: FilterContext,
-                 tokenizer):
+                 tokenizer, tp=None):
         self.config = config
         self.fctx = fctx
         self.tokenizer = tokenizer
+        self.tp = tp  # the mesh's tp group (models/model.py)
         self.reset_stats()
 
     def reset_stats(self) -> None:
@@ -102,12 +103,13 @@ class HostWindowDecoder:
         prompt_arr[:P] = prompt_tokens
 
         kv = init_kv_cache(config, 1, dtype=param_compute_dtype(params),
-                           device=dev)
+                           device=dev, tp=self.tp)
         positions = torch.arange(pad, dtype=torch.int32, device=dev)[None]
         n_prompt = torch.tensor([P], dtype=torch.int32, device=dev)
         raw_logits, kv = decoder_dense(
             params, config, torch.from_numpy(prompt_arr).to(dev)[None],
-            positions, kv, xkv1, n_valid=n_prompt, logit_rows=n_prompt - 1)
+            positions, kv, xkv1, n_valid=n_prompt, logit_rows=n_prompt - 1,
+            tp=self.tp)
         lap("prompt")
         self.n_attempts += 1
         lo = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -213,7 +215,7 @@ class HostWindowDecoder:
             step_in = torch.tensor([tok_id, P + i], dtype=torch.int32).to(dev)
             raw_logits, kv = decoder_step(
                 params, config, step_in[0:1], step_in[1:2], kv, xkv1, lo=lo,
-                slot=P + i, split=0)
+                slot=P + i, split=0, tp=self.tp)
             lap("step")
 
         n = len(tokens)

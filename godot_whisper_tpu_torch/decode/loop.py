@@ -46,6 +46,7 @@ from ..models.config import MAX_DECODERS, WhisperConfig
 from ..models.model import (cross_kv, decoder_dense, encoder_forward,
                             init_kv_cache, param_compute_dtype,
                             quantize_cross_kv)
+from ..parallel.collectives import tp_size
 from ..runtime.metrics import Timings
 from ..runtime.trace import tracer
 from .clip import ClipDecoder, ClipStatics, mel_windows
@@ -116,12 +117,18 @@ def _strategy(tparams: TranscribeParams) -> str:
 
 
 class WhisperPipeline:
-    """One loaded model + decode state (context + state in reference terms)."""
+    """One loaded model + decode state (context + state in reference terms).
+
+    ``tp`` is the mesh's tp group when ``params`` hold one rank's slices
+    (``parallel/sharding.py``); every rank of the group runs the same
+    calls, and every forward pass takes it."""
 
     def __init__(self, config: WhisperConfig, params, tokenizer: Tokenizer,
-                 mel_filters: np.ndarray, *, device, n_loaded: int = -1):
+                 mel_filters: np.ndarray, *, device, n_loaded: int = -1,
+                 tp=None):
         self.config = config
         self.params = params
+        self.tp = tp
         self.tokenizer = tokenizer
         self.device = device
         self.mel = MelFrontend(mel_filters, device=device)
@@ -141,6 +148,13 @@ class WhisperPipeline:
         self._energy: Optional[np.ndarray] = None
         self._ts_state = {"t_beg": 0, "t_last": 0, "tid_last": 0}
         self.segments: List[Segment] = []
+
+    def set_params(self, params, tp=None) -> None:
+        """Swap the weights (one rank's slices under ``tp``); the decoders
+        built for the old ones are dropped."""
+        self.params, self.tp = params, tp
+        self._clip_decoders.clear()
+        self._window_decoders.clear()
 
     # ------------------------------------------------------------------ mel
     def set_audio(self, samples: np.ndarray) -> None:
@@ -192,13 +206,14 @@ class WhisperPipeline:
         config = self.config
         dev = self.device
         kv = init_kv_cache(config, 1, dtype=param_compute_dtype(self.params),
-                           device=dev)
+                           device=dev, tp=self.tp)
         tokens = torch.full((1, 1), config.token_sot, dtype=torch.int32,
                             device=dev)
         positions = torch.zeros((1, 1), dtype=torch.int32, device=dev)
         logits, _ = decoder_dense(self.params, config, tokens, positions, kv,
                                   xkv, n_valid=torch.ones(1, dtype=torch.int32,
-                                                          device=dev))
+                                                          device=dev),
+                                  tp=self.tp)
         return detect_language_from_logits(
             logits[0, 0].float().cpu().numpy(), config)
 
@@ -310,7 +325,7 @@ class WhisperPipeline:
         cd = self._clip_decoders.get(key)
         if cd is None:
             cd = ClipDecoder(self.config, self._fctx(tparams), statics,
-                             prompt_init)
+                             prompt_init, tp=self.tp)
             self._clip_decoders[key] = cd
         return cd
 
@@ -344,7 +359,7 @@ class WhisperPipeline:
                round(tparams.max_initial_ts, 6))
         wd = self._window_decoders.get(key)
         if wd is None:
-            wd = WindowDecoder(self.config, self._fctx(tparams))
+            wd = WindowDecoder(self.config, self._fctx(tparams), tp=self.tp)
             self._window_decoders[key] = wd
         return wd
 
@@ -356,7 +371,7 @@ class WhisperPipeline:
         if hd is None:
             hd = HostWindowDecoder(self.config,
                                    self.window_decoder(tparams).fctx,
-                                   self.tokenizer)
+                                   self.tokenizer, tp=self.tp)
             self._window_decoders[key] = hd
         return hd
 
@@ -371,10 +386,11 @@ class WhisperPipeline:
             wins = mel_windows(self._mel_device[None], np.asarray([seek]),
                                np.asarray([self._mel_n_len]), n_ctx)
             enc = encoder_forward(self.params, self.config, wins,
-                                  audio_ctx=audio_ctx or None)
-            xkv = cross_kv(self.params, self.config, enc)
+                                  audio_ctx=audio_ctx or None, tp=self.tp)
+            xkv = cross_kv(self.params, self.config, enc, tp=self.tp)
             if quant_kv:
-                xkv = quantize_cross_kv(xkv, self.config.n_text_head)
+                xkv = quantize_cross_kv(
+                    xkv, self.config.n_text_head // tp_size(self.tp))
         self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
         self.timings.n_encode += 1
         return enc, xkv

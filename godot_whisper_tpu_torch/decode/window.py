@@ -31,7 +31,7 @@ tensors:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -85,20 +85,23 @@ class WindowStatics:
     beam_size: int = 1        # beams per group (beam strategy)
     # tests only: the merged-cache beam path (K8) at any width
     force_merged_cache: bool = False
+    # the mesh's tp group (models/model.py), None on one device
+    tp: Any = None
 
 
 def use_split_cache(statics: WindowStatics) -> bool:
     """Beam decode keeps the prompt K/V once per group and the live K/V per
     beam (K7) when beam_size * n_text_head <= 128, as the JAX package does
     (its packed-lane kernel needs it); wider configurations keep one merged
-    cache per beam, reordered by K8 at every merge."""
+    cache per beam, reordered by K8 at every merge.  The rule counts the
+    model's heads, not a tp rank's, so a tp run takes the route of tp 1."""
     return (statics.strategy == "beam" and not statics.force_merged_cache
             and statics.beam_size * statics.config.n_text_head <= 128)
 
 
 def prompt_pass_per_stream(params, config: WhisperConfig,
                            prompt: torch.Tensor, n_prompt: np.ndarray,
-                           xkv, n_max: Optional[int] = None):
+                           xkv, n_max: Optional[int] = None, tp=None):
     """Per-stream prompt decode: each row its own prompt (B, P) with its
     own length; ``xkv`` a CrossKV or an int8 QuantCrossKV.  The cache holds
     P + n_max slots; the padded prompt capacity P is the decode loop's
@@ -109,26 +112,27 @@ def prompt_pass_per_stream(params, config: WhisperConfig,
     kv0 = init_kv_cache(config, B,
                         cache_len=P + (n_max if n_max is not None
                                        else config.n_text_ctx // 2 - 4),
-                        dtype=param_compute_dtype(params), device=dev)
+                        dtype=param_compute_dtype(params), device=dev, tp=tp)
     positions = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
     n_prompt_t = torch.as_tensor(np.asarray(n_prompt, np.int64).reshape(B),
                                  device=dev)
     logits, kv = decoder_dense(params, config, prompt, positions, kv0, xkv,
                                n_valid=n_prompt_t,
-                               logit_rows=n_prompt_t - 1)
+                               logit_rows=n_prompt_t - 1, tp=tp)
     return logits[:, 0], kv
 
 
 def prompt_pass_grouped(params, config: WhisperConfig, prompt: torch.Tensor,
                         n_prompt: np.ndarray, xkv, n_dec: int,
-                        n_max: Optional[int] = None, repeat_kv: bool = True):
+                        n_max: Optional[int] = None, repeat_kv: bool = True,
+                        tp=None):
     """Grouped prompt pass: G streams decode their prompts ONCE, then the
     logits and self-KV repeat to each stream's n_dec decoder rows
     (kv_cache_seq_cp 0 -> j per stream, whisper.cpp:5277).  With
     ``repeat_kv=False`` the self-KV keeps its G rows: the split-cache beam
     loop stores the prompt once per group."""
     last, kv = prompt_pass_per_stream(params, config, prompt, n_prompt, xkv,
-                                      n_max=n_max)
+                                      n_max=n_max, tp=tp)
     if n_dec == 1:
         return last, kv
     last = last.repeat_interleave(n_dec, dim=0)
@@ -390,7 +394,8 @@ def run_decode_loop(params, config: WhisperConfig, fctx: FilterContext,
             kv, xkv, lo=lo, slot=i if split else statics.prompt_pad + i,
             split=statics.prompt_pad, kv_group=statics.kv_group,
             kv_prompt=kv_prompt,
-            rowmap=torch.from_numpy(rowmap).to(dev) if split else None)
+            rowmap=torch.from_numpy(rowmap).to(dev) if split else None,
+            tp=statics.tp)
 
     return WindowResult(
         tokens=tokens, tok_p=tok_p, tok_plog=tok_plog, tok_pt=tok_pt,
@@ -404,9 +409,11 @@ class WindowDecoder:
     greedy / sampling, or beam search (``strategy="beam"``, one group of
     ``beam_size`` beams)."""
 
-    def __init__(self, config: WhisperConfig, fctx: FilterContext):
+    def __init__(self, config: WhisperConfig, fctx: FilterContext,
+                 tp=None):
         self.config = config
         self.fctx = fctx
+        self.tp = tp
 
     def decode(self, params, xkv, prompt_tokens: np.ndarray, *,
                n_decoders: int, temperature: float, seek: int, seek_end: int,
@@ -433,13 +440,14 @@ class WindowDecoder:
             suppress_blank=suppress_blank, no_timestamps=no_timestamps,
             single_segment=single_segment, max_tokens=max_tokens,
             test_mode=test_mode, kv_group=n_decoders, strategy=strategy,
-            beam_size=beam_size, force_merged_cache=force_merged_cache)
+            beam_size=beam_size, force_merged_cache=force_merged_cache,
+            tp=self.tp)
         prompt = np.zeros((1, pad), np.int32)
         prompt[0, :P] = prompt_tokens
         dev = xkv.device
         last, kv = prompt_pass_grouped(
             params, config, torch.from_numpy(prompt).to(dev),
             np.asarray([P]), xkv, n_decoders, n_max=n_max,
-            repeat_kv=not use_split_cache(statics))
+            repeat_kv=not use_split_cache(statics), tp=self.tp)
         return run_decode_loop(params, config, self.fctx, statics, xkv, kv,
                                last, P, temperature, seek, seek_end, seed)

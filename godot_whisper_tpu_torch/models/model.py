@@ -29,6 +29,19 @@ of the conv stem reads the convolution's unrounded f32 sum
 Where the JAX package returns a fresh cache, ``decoder_dense`` and
 ``decoder_step`` write the new K/V rows INTO the cache they are given (a
 slot write instead of a copy of the whole cache every token) and return it.
+
+Tensor parallelism (``tp``, the mesh's tp group from
+``parallel/sharding.py``, or None): the weights hold this rank's slices
+(``shard_params``) and every function runs this rank's heads.  The conv
+stem and the token embedding are sharded on features and gathered;
+q / k / v, ``w0`` and the cross K / V are column-parallel on the local heads
+(caches of width S / tp); ``wo`` and ``w1`` are row-parallel, their f32
+partial products all-reduced before the bias and the rounding
+(``_row_proj``); the logits take x's local feature slice against the local
+embedding columns and are all-reduced, so every rank samples from the same
+(B, V) f32 logits.  The collectives are ``parallel/collectives.py``'s
+autograd functions, so a training step's backward is right too.  With
+``tp=None`` the code is the single-device path, with its launches.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from ..ops.decode_attention import decode_attention
 from ..ops.qmatmul import (QUANT_TYPES, QuantTensor, qlayer, quant_matmul,
                            quant_matmul4)
 from ..ops.split_attention import split_beam_attention
+from ..parallel.collectives import (copy_to_tp, gather_from_tp,
+                                    reduce_from_tp, tp_size)
 from .config import WhisperConfig
 
 Params = Dict[str, Any]
@@ -102,18 +117,41 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _proj(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
-          out_dtype=None) -> torch.Tensor:
+def _product(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w in f32 (K9 / K10 for a quantized weight)."""
     if isinstance(w, QUANT_TYPES):
-        y = (quant_matmul(x, w, layout="io") if isinstance(w, QuantTensor)
-             else quant_matmul4(x, w))
-        if b is not None:
-            y = y + b
-        return y.to(out_dtype if out_dtype is not None else torch.bfloat16)
-    y = _matmul_f32(x, w)
+        return (quant_matmul(x, w, layout="io") if isinstance(w, QuantTensor)
+                else quant_matmul4(x, w))
+    return _matmul_f32(x, w)
+
+
+def _finish(y: torch.Tensor, w, b: Optional[torch.Tensor],
+            out_dtype) -> torch.Tensor:
+    """The f32 product plus its f32 bias, rounded once."""
     if b is not None:
         y = y + b
-    return y.to(out_dtype if out_dtype is not None else w.dtype)
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if isinstance(w, QUANT_TYPES) else w.dtype
+    return y.to(out_dtype)
+
+
+def _proj(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+          out_dtype=None) -> torch.Tensor:
+    return _finish(_product(x, w), w, b, out_dtype)
+
+
+def _row_proj(x: torch.Tensor, w, b: Optional[torch.Tensor], out_dtype,
+              tp) -> torch.Tensor:
+    """A row-parallel projection (``wo``, ``w1``) of this rank's slice x:
+    the f32 partial product is all-reduced in f32, then the bias is added
+    and the sum rounded.  A leaf kept whole on every rank (an int4 weight
+    whose shard would split a quantization group, ``shard_params``) takes
+    the gathered input instead and needs no reduce."""
+    if tp is None:
+        return _proj(x, w, b, out_dtype)
+    if w.shape[-2] != x.shape[-1]:
+        return _proj(gather_from_tp(x, tp), w, b, out_dtype)
+    return _finish(reduce_from_tp(_product(x, w), tp), w, b, out_dtype)
 
 
 def _self_qkv(h: torch.Tensor, attn) -> Tuple[torch.Tensor, torch.Tensor,
@@ -168,7 +206,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ================================================================== encoder ==
-def conv_stem(enc: Params, mel_window: torch.Tensor) -> torch.Tensor:
+def conv_stem(enc: Params, mel_window: torch.Tensor,
+              tp=None) -> torch.Tensor:
     """(B, 2T, n_mels) mel -> (B, T, S) f32: two conv1d (k=3, pad=1, the
     second stride 2), each + bias + GELU.  The convolutions take
     compute-dtype values and keep their f32 sums, so each GELU reads the
@@ -177,20 +216,25 @@ def conv_stem(enc: Params, mel_window: torch.Tensor) -> torch.Tensor:
     the first GELU's output is rounded to the compute dtype.  f32 must not
     drop to TF32 in cuDNN; the flags hold for this forward only, so a
     backward through the stem sets them again (``models/training.py``
-    takes its gradients inside the same flags)."""
+    takes its gradients inside the same flags).  Under ``tp`` each
+    convolution computes this rank's output channels, gathered before the
+    next layer reads them."""
     cdtype = enc["conv1"]["w"].dtype
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         x = mel_window.to(cdtype).transpose(1, 2)              # (B, M, 2T)
         x = Fn.conv1d(x.float(), enc["conv1"]["w"].float(), padding=1)
         x = _gelu(x + enc["conv1"]["b"][:, None]).to(cdtype)
+        x = copy_to_tp(gather_from_tp(x, tp, dim=1), tp)
         x = Fn.conv1d(x.float(), enc["conv2"]["w"].float(), stride=2,
                       padding=1)
-    return _gelu(x + enc["conv2"]["b"][:, None]).transpose(1, 2)
+    x = gather_from_tp(_gelu(x + enc["conv2"]["b"][:, None]), tp, dim=1)
+    return x.transpose(1, 2)
 
 
 def encoder_forward(params: Params, config: WhisperConfig,
                     mel_window: torch.Tensor,
-                    audio_ctx: Optional[int] = None) -> torch.Tensor:
+                    audio_ctx: Optional[int] = None,
+                    tp=None) -> torch.Tensor:
     """Conv stem + transformer encoder.
 
     mel_window: (B, 2 * audio_ctx, n_mels) float32.  Returns (B, audio_ctx,
@@ -201,14 +245,15 @@ def encoder_forward(params: Params, config: WhisperConfig,
     """
     enc = params["encoder"]
     n_ctx = audio_ctx or config.n_audio_ctx
-    n_head = config.n_audio_head
+    n_head = config.n_audio_head // tp_size(tp)               # local heads
     cdtype = enc["conv1"]["w"].dtype
 
-    x = conv_stem(enc, mel_window)
+    x = conv_stem(enc, mel_window, tp)
     x = (x + enc["pos_embed"][:n_ctx]).to(cdtype)              # (B, T, S)
 
-    b_sz, t_real, c = x.shape
-    d = c // n_head
+    b_sz, t_real, _ = x.shape
+    d = config.n_audio_state // config.n_audio_head
+    c = n_head * d                                             # local width
     t_pad = -(-t_real // 512) * 512
     pad_native = (x.is_cuda and t_pad != t_real
                   and (t_pad - t_real) * 10 <= t_real)
@@ -227,19 +272,19 @@ def encoder_forward(params: Params, config: WhisperConfig,
         ln1 = {k: v[li] for k, v in blocks["mlp_ln"].items()}
         mlp = {k: v[li] for k, v in blocks["mlp"].items()}
 
-        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(x, ln0["g"], ln0["b"]).to(cdtype), tp)
         q = to_bh(_proj(h, attn["wq"], attn["bq"]))
         k = to_bh(_proj(h, attn["wk"]))
         v = to_bh(_proj(h, attn["wv"], attn["bv"]))
         o = flash_attention_bh(q, k, v,
                                t_valid=t_real if pad_native else None)
         o = o.reshape(b_sz, n_head, t, d).transpose(1, 2).reshape(b_sz, t, c)
-        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
-                                   out_dtype=cdtype))
+        x, xs = _residual(x, _row_proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                       cdtype, tp))
 
-        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype), tp)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
-        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        h = _row_proj(h.to(cdtype), mlp["w1"], mlp["b1"], cdtype, tp)
         x = (x + h).to(cdtype)
 
     if pad_native:
@@ -314,10 +359,12 @@ def quantize_cross_kv(xkv: CrossKV, n_head: int) -> QuantCrossKV:
 
 
 def cross_kv(params: Params, config: WhisperConfig,
-             enc_out: torch.Tensor) -> CrossKV:
-    """Project the encoder output to every decoder layer's cross K/V, padded
-    on T to the decode-attention block size."""
+             enc_out: torch.Tensor, tp=None) -> CrossKV:
+    """Project the encoder output to every decoder layer's cross K/V (this
+    rank's heads under ``tp``), padded on T to the decode-attention block
+    size."""
     ca = params["decoder"]["blocks"]["cross_attn"]
+    enc_out = copy_to_tp(enc_out, tp)
     ks, vs = [], []
     for li in range(config.n_text_layer):
         ks.append(_proj(enc_out, qlayer(ca["wk"], li)))
@@ -343,16 +390,21 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(config: WhisperConfig, batch: int,
                   cache_len: Optional[int] = None, dtype=torch.bfloat16,
-                  *, device) -> KVCache:
-    """Fresh zero cache, capacity rounded up to the kernel block."""
+                  *, device, tp=None) -> KVCache:
+    """Fresh zero cache, capacity rounded up to the kernel block; width
+    n_text_state / tp (this rank's heads)."""
     c = round_cache_len(cache_len if cache_len is not None
                         else config.n_text_ctx)
-    shape = (config.n_text_layer, batch, c, config.n_text_state)
+    shape = (config.n_text_layer, batch, c,
+             config.n_text_state // tp_size(tp))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _embed(dec, tokens: torch.Tensor, positions: torch.Tensor, cdtype):
+def _embed(dec, tokens: torch.Tensor, positions: torch.Tensor, cdtype,
+           tp=None):
+    """Token rows (this rank's feature slice under ``tp``, gathered) plus
+    the positional embedding."""
     te = dec["token_embed"]
     t = tokens.long()
     if isinstance(te, QuantTensor):
@@ -360,16 +412,23 @@ def _embed(dec, tokens: torch.Tensor, positions: torch.Tensor, cdtype):
         x = te.q[t].float() * te.s[t][..., None]
     else:
         x = te[t].float()
+    x = gather_from_tp(x, tp)
     return (x + dec["pos_embed"][positions.long()]).to(cdtype)
 
 
-def _logits(dec, x: torch.Tensor) -> torch.Tensor:
+def _logits(dec, x: torch.Tensor, tp=None) -> torch.Tensor:
     """x (..., S) -> (..., V) f32 against the token embedding (the int8
-    one through K9's ``oi`` layout)."""
+    one through K9's ``oi`` layout).  Under ``tp``, x's local feature slice
+    against the local embedding columns, all-reduced."""
     te = dec["token_embed"]
+    if tp is not None:
+        n = te.shape[-1]
+        x = copy_to_tp(x, tp)[..., tp.rank * n:(tp.rank + 1) * n]
     if isinstance(te, QuantTensor):
-        return quant_matmul(x, te, layout="oi")
-    return _matmul_f32(x, te.t())
+        y = quant_matmul(x, te, layout="oi")
+    else:
+        y = _matmul_f32(x, te.t())
+    return reduce_from_tp(y, tp)
 
 
 def _layer(blocks, li: int):
@@ -395,7 +454,7 @@ def decoder_dense(params: Params, config: WhisperConfig,
                   tokens: torch.Tensor, positions: torch.Tensor,
                   kv: KVCache, xkv, n_valid: torch.Tensor,
                   logit_rows: Optional[torch.Tensor] = None,
-                  start: int = 0) -> Tuple[torch.Tensor, KVCache]:
+                  start: int = 0, tp=None) -> Tuple[torch.Tensor, KVCache]:
     """Decoder over T new tokens written at cache slots [start, start + T):
     the prompt pass (start 0) and the stage-level ``decode``.  Slot c is
     visible to query t iff c <= start + t and it is history (c < start) or
@@ -405,13 +464,13 @@ def decoder_dense(params: Params, config: WhisperConfig,
     XLA; an int8 ``xkv`` (QuantCrossKV) is dequantized per layer to bf16
     first.  Writes into ``kv`` in place and returns (logits, kv)."""
     dec = params["decoder"]
-    n_head = config.n_text_head
+    n_head = config.n_text_head // tp_size(tp)                # local heads
     cdtype = param_compute_dtype(params)
     B, T = tokens.shape
     C = kv.cache_len
     dev = tokens.device
 
-    x = _embed(dec, tokens, positions, cdtype)
+    x = _embed(dec, tokens, positions, cdtype, tp)
     nv = n_valid.reshape(-1, 1, 1, 1).to(dev)
     c_pos = torch.arange(C, device=dev)[None, None, None, :]
     q_idx = torch.arange(T, device=dev)[None, None, :, None]
@@ -432,40 +491,40 @@ def decoder_dense(params: Params, config: WhisperConfig,
     for li in range(config.n_text_layer):
         layer = _layer(dec["blocks"], li)
         ln0, attn = layer["attn_ln"], layer["attn"]
-        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(x, ln0["g"], ln0["b"]).to(cdtype), tp)
         q, k_new, v_new = _self_qkv(h, attn)
         kv.k[li, :, start:start + T] = k_new.to(kv.k.dtype)
         kv.v[li, :, start:start + T] = v_new.to(kv.v.dtype)
         o = attend(q, kv.k[li], kv.v[li], self_mask)
-        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
-                                   out_dtype=cdtype))
+        x, xs = _residual(x, _row_proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                       cdtype, tp))
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
-        h = layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype), tp)
         qc = _proj(h, cattn["wq"], cattn["bq"])
         xk, xv = (_dequant_xkv_layer(xkv, li, n_head) if quant_xkv
                   else (xkv.k[li], xkv.v[li]))
         oc = attend(qc, xk, xv, cross_mask)
-        x, xs = _residual(x, _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
-                                   out_dtype=cdtype))
+        x, xs = _residual(x, _row_proj(oc.to(cdtype), cattn["wo"],
+                                       cattn["bo"], cdtype, tp))
 
         ln1, mlp = layer["mlp_ln"], layer["mlp"]
-        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype), tp)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
-        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        h = _row_proj(h.to(cdtype), mlp["w1"], mlp["b1"], cdtype, tp)
         x = (x + h).to(cdtype)
 
     x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"]).to(cdtype)
     if logit_rows is not None:
         x = x[torch.arange(B, device=dev), logit_rows.to(dev)][:, None]
-    return _logits(dec, x), kv
+    return _logits(dec, x, tp), kv
 
 
 def decoder_step(params: Params, config: WhisperConfig,
                  token: torch.Tensor, pos: torch.Tensor, kv: KVCache,
                  xkv, lo: torch.Tensor, slot: int, split: int,
                  kv_group: int = 1, kv_prompt: Optional[KVCache] = None,
-                 rowmap: Optional[torch.Tensor] = None
+                 rowmap: Optional[torch.Tensor] = None, tp=None
                  ) -> Tuple[torch.Tensor, KVCache]:
     """The autoregressive hot step: one token per row.
 
@@ -488,7 +547,7 @@ def decoder_step(params: Params, config: WhisperConfig,
     Writes the new K/V into ``kv`` in place and returns (logits (B, V) f32,
     kv)."""
     dec = params["decoder"]
-    n_head = config.n_text_head
+    n_head = config.n_text_head // tp_size(tp)                # local heads
     cdtype = param_compute_dtype(params)
     B = token.shape[0]
     quant_xkv = isinstance(xkv, QuantCrossKV)
@@ -496,11 +555,11 @@ def decoder_step(params: Params, config: WhisperConfig,
                           device=token.device)
     beam_group = B // kv_prompt.k.shape[1] if kv_prompt is not None else 1
 
-    x = _embed(dec, token, pos, cdtype)                        # (B, S)
+    x = _embed(dec, token, pos, cdtype, tp)                    # (B, S)
     for li in range(config.n_text_layer):
         layer = _layer(dec["blocks"], li)
         ln0, attn = layer["attn_ln"], layer["attn"]
-        h = layer_norm(x, ln0["g"], ln0["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(x, ln0["g"], ln0["b"]).to(cdtype), tp)
         q, k_new, v_new = _self_qkv(h, attn)
         kv.k[li, :, slot] = k_new.to(kv.k.dtype)
         kv.v[li, :, slot] = v_new.to(kv.v.dtype)
@@ -512,11 +571,11 @@ def decoder_step(params: Params, config: WhisperConfig,
         else:
             o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
                                  n_head=n_head, layer=li)
-        x, xs = _residual(x, _proj(o.to(cdtype), attn["wo"], attn["bo"],
-                                   out_dtype=cdtype))
+        x, xs = _residual(x, _row_proj(o.to(cdtype), attn["wo"], attn["bo"],
+                                       cdtype, tp))
 
         lnc, cattn = layer["cross_attn_ln"], layer["cross_attn"]
-        h = layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(xs, lnc["g"], lnc["b"]).to(cdtype), tp)
         qc = _proj(h, cattn["wq"], cattn["bq"])
         if quant_xkv:
             oc = cross_attention_quant(qc, xkv.k_q, xkv.k_s, xkv.v_q,
@@ -527,14 +586,14 @@ def decoder_step(params: Params, config: WhisperConfig,
             oc = decode_attention(qc, xkv.k, xkv.v, cross_lo, 0,
                                   split=xkv.t_pad, n_head=n_head,
                                   kv_group=kv_group, layer=li)
-        x, xs = _residual(x, _proj(oc.to(cdtype), cattn["wo"], cattn["bo"],
-                                   out_dtype=cdtype))
+        x, xs = _residual(x, _row_proj(oc.to(cdtype), cattn["wo"],
+                                       cattn["bo"], cdtype, tp))
 
         ln1, mlp = layer["mlp_ln"], layer["mlp"]
-        h = layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype)
+        h = copy_to_tp(layer_norm(xs, ln1["g"], ln1["b"]).to(cdtype), tp)
         h = _gelu(_proj(h, mlp["w0"], mlp["b0"]))
-        h = _proj(h.to(cdtype), mlp["w1"], mlp["b1"], out_dtype=cdtype)
+        h = _row_proj(h.to(cdtype), mlp["w1"], mlp["b1"], cdtype, tp)
         x = (x + h).to(cdtype)
 
     x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"]).to(cdtype)
-    return _logits(dec, x), kv
+    return _logits(dec, x, tp), kv

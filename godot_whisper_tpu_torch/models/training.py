@@ -12,6 +12,16 @@ RecomputeAttention``); every other operation is plain PyTorch under
 autograd.  ``make_optimizer`` is optax 0.2.6's ``adamw`` written out in
 torch, with its order of operations and its rounding points, so that a
 bf16 step rounds where the JAX package's does.
+
+On a dp x tp mesh (``mesh=``, ``parallel/sharding.py``) each process holds
+its tp rank's slices (``shard_params``) and its dp shard's rows of the
+batch (``batch_sharding``).  The loss stays the global masked mean: the
+masked sum and the mask count are all-reduced over dp.  The collectives
+inside the model carry the tp gradients (``parallel/collectives.py``: a
+leaf replicated over tp gets the same gradient on every tp rank), and
+every gradient is summed over dp before AdamW, which then runs on the
+local slices (optax's ``adamw`` clips no global norm, so nothing else
+needs reducing).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.qmatmul import QUANT_TYPES
+from ..parallel.collectives import all_reduce, reduce_over
 from ..runtime.device import resolve_device
 from .config import WhisperConfig
 from .model import cross_kv, decoder_dense, encoder_forward, init_kv_cache
@@ -39,22 +50,28 @@ def loss_fn(params: Params, config: WhisperConfig,
             tokens: torch.Tensor,    # (B, T) int — input tokens
             targets: torch.Tensor,   # (B, T) int — next-token labels
             mask: torch.Tensor,      # (B, T) f32 — loss weights
-            audio_ctx: int = 0) -> torch.Tensor:
-    """Mean masked cross-entropy of the decoder given encoded audio."""
+            audio_ctx: int = 0, mesh=None) -> torch.Tensor:
+    """Mean masked cross-entropy of the decoder given encoded audio; on a
+    mesh, over every dp shard's rows."""
     B, T = tokens.shape
     dev = tokens.device
-    enc = encoder_forward(params, config, mel, audio_ctx=audio_ctx or None)
-    xkv = cross_kv(params, config, enc)
+    tp = mesh.tp_group if mesh is not None else None
+    dp = mesh.dp_group if mesh is not None else None
+    enc = encoder_forward(params, config, mel, audio_ctx=audio_ctx or None,
+                          tp=tp)
+    xkv = cross_kv(params, config, enc, tp=tp)
     kv = init_kv_cache(config, B, dtype=params["decoder"]["token_embed"].dtype,
-                       device=dev)
+                       device=dev, tp=tp)
     positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
     n_valid = torch.full((B,), T, dtype=torch.int32, device=dev)
     logits, _ = decoder_dense(params, config, tokens, positions, kv, xkv,
-                              n_valid=n_valid)
+                              n_valid=n_valid, tp=tp)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = reduce_over((nll * mask).sum(), dp)
+    count = reduce_over(mask.sum(), dp)
+    return total / torch.clamp_min(count, 1.0)
 
 
 class AdamWState(NamedTuple):
@@ -180,39 +197,60 @@ def _batch_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(params: Params, config: WhisperConfig, batch: Dict,
-                   audio_ctx: int = 0, device=None
+                   audio_ctx: int = 0, device=None, mesh=None
                    ) -> Tuple[torch.Tensor, Params]:
     """(loss, gradients): the port's ``jax.value_and_grad(loss_fn)``.  The
     gradients are taken over detached copies of the leaves, so ``params``
     come back untouched and without ``requires_grad``.  The backward runs
     under the conv stem's cuDNN flags (no TF32): the stem sets them for
     its forward only, and a float32 convolution's backward would
-    otherwise drop to TF32."""
+    otherwise drop to TF32.  On a ``mesh`` the gradients of this rank's
+    slices are summed over dp (one f32 all-reduce per dtype)."""
     _require_float(params)
     b = _batch_tensors(batch, device)
     with torch.enable_grad():
         inputs = tree_map(lambda _, x: x.detach().requires_grad_(True),
                           params)
         loss = loss_fn(inputs, config, b["mel"], b["tokens"], b["targets"],
-                       b["mask"], audio_ctx=audio_ctx)
+                       b["mask"], audio_ctx=audio_ctx, mesh=mesh)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            grads = iter(torch.autograd.grad(
+            grads = list(torch.autograd.grad(
                 loss, [x for _, x in tree_leaves(inputs)]))
-    return loss.detach(), tree_map(lambda *_: next(grads), inputs)
+    if mesh is not None and mesh.dp_group is not None:
+        grads = _sum_over(grads, mesh.dp_group)
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda *_: next(it), inputs)
+
+
+def _sum_over(grads, group):
+    """Every gradient summed over ``group``: the leaves of one dtype
+    flattened into one f32 buffer, one all-reduce each, then split and
+    rounded back."""
+    out = list(grads)
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = torch.cat([grads[i].float().reshape(-1) for i in idx])
+        all_reduce(flat, group, "dp_grads")
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            out[i] = part.reshape(grads[i].shape).to(dtype)
+    return out
 
 
 def train_step(state: TrainState, config: WhisperConfig, batch: Dict,
-               lr: float = 1e-4, device=None) -> Tuple[TrainState,
-                                                       torch.Tensor]:
+               lr: float = 1e-4, device=None,
+               mesh=None) -> Tuple[TrainState, torch.Tensor]:
     """One full training step: forward, backward, optimizer update.
 
     ``batch`` holds ``mel`` (B, 2*n_audio_ctx, n_mels) f32, ``tokens`` and
     ``targets`` (B, T) int and ``mask`` (B, T) f32.  Tensors stay on their
-    device; numpy arrays go to ``device`` (None is the card).  Returns the
-    new state (fresh tensors; the old state is not modified) and the loss
-    before the step."""
+    device; numpy arrays go to ``device`` (None is the card).  On a
+    ``mesh`` the state holds this rank's slices and the batch this dp
+    shard's rows.  Returns the new state (fresh tensors; the old state is
+    not modified) and the loss before the step (the global one)."""
     opt = make_optimizer(lr)
-    loss, grads = loss_and_grads(state.params, config, batch, device=device)
+    loss, grads = loss_and_grads(state.params, config, batch, device=device,
+                                 mesh=mesh)
     with torch.no_grad():
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version at the main-path and large-v3 shapes, the nano golden
 transcripts through the kernels, and training's gradients through K2 and
-K13 (models/training.py) against the CPU route.  Every test here needs
+K13 (models/training.py) against the CPU route, and the kernels on a
+second device and under two tp ranks.  Every test here needs
 an NVIDIA GPU (``cuda`` marker) and skips without one.  Imports no JAX,
 so that it runs where JAX is not installed:
 
@@ -10,6 +11,7 @@ so that it runs where JAX is not installed:
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -1178,3 +1180,118 @@ def test_train_step_nano_on_card_matches_cpu(cuda, n_audio_ctx):
     state, l2 = tt.train_step(state, cfg, batch)
     assert float(l2) < float(l1)
     assert state.params["encoder"]["conv1"]["w"].device.type == "cuda"
+
+
+# ------------------------------------------------------- multiple devices --
+def _k1_k5_on(dev):
+    """K1 on 3 s of audio and K5 on 5 tiny.en rows on ``dev``: (launched,
+    K1 against its plain version, K5's tokens equal the plain version's)."""
+    cfg = get_config("tiny.en")
+    rng = np.random.default_rng(3)
+    audio = (rng.standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    a16 = torch.from_numpy(pad_audio(audio).astype(np.float16)).to(dev)[None]
+    filt = torch.from_numpy(mel_filterbank(80)).to(dev)
+    basis = torch.from_numpy(M.dft_basis()).to(dev)
+    n1, n5 = M.log_mel_raw.launches, FS.fused_filter_sample.launches
+    got = M.log_mel_raw(a16, M.mel_tables(basis, filt))
+    mel_err = float((got - M.log_mel_raw_plain(a16, basis, filt)).abs()
+                    .max())
+    V = cfg.n_vocab
+    logits = (torch.randn(5, V, generator=torch.Generator().manual_seed(2))
+              * 3).to(dev)
+    sup = torch.zeros(V, dtype=torch.bool, device=dev)
+    state = torch.tensor([[1, -1, -1, 0, 0, 3000, 1]] * 5, dtype=torch.int32,
+                         device=dev)
+    kw = dict(temperature=0.0, seed=99, eot=cfg.token_eot, beg=cfg.token_beg,
+              space_id=220, max_initial_tid=50, suppress_blank=True,
+              no_timestamps=False)
+    tok = FS.fused_filter_sample(logits, sup, state, **kw).token
+    torch.cuda.synchronize(dev)
+    launched = (M.log_mel_raw.launches == n1 + 1
+                and FS.fused_filter_sample.launches == n5 + 1)
+    same = torch.equal(tok, FS.fused_filter_sample_plain(logits, sup, state,
+                                                         **kw).token)
+    return launched, mel_err, same
+
+
+def test_k1_k5_launch_on_a_second_device(cuda):
+    """K1's shared-memory attribute and K5's cluster attribute are set per
+    device: both launch, and agree with their plain versions, on cuda:1
+    after cuda:0 in one process."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        launched, mel_err, same = _k1_k5_on(dev)
+        assert launched and same, dev
+        assert mel_err < 1e-3, (dev, mel_err)
+
+
+def _tp2_step_worker(rank, port, out):
+    """One rank of a tp 2 decoder_step on cuda:0 over gloo: nano f32, the
+    prompt pass and one step, logits written to ``out``."""
+    import torch.distributed as dist
+    from godot_whisper_tpu_torch.parallel.sharding import (make_mesh,
+                                                           shard_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    mesh = make_mesh(1, 2, device="cuda:0")
+    cfg, logits = _nano_step(shard_params, mesh)
+    np.save(out, logits)
+    dist.destroy_process_group()
+
+
+def _nano_step(shard, mesh=None):
+    """nano f32 on cuda:0 (sharded when ``mesh`` is given): the logits of
+    one decoder_step after a 4-token prompt pass, on the host."""
+    cfg = get_config("tiny.en").replace(
+        n_audio_layer=2, n_text_layer=2, n_audio_state=128, n_audio_head=4,
+        n_text_state=128, n_text_head=4, name="nano")
+    dev = torch.device("cuda", 0)
+    params = gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
+                            device=dev)
+    tp = None
+    if mesh is not None:
+        params, tp = shard(params, mesh, cfg), mesh.tp_group
+    rng = np.random.default_rng(4)
+    mel = torch.from_numpy(rng.standard_normal(
+        (2, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.n_vocab, (2, 4)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        xkv = cross_kv(params, cfg, encoder_forward(params, cfg, mel, tp=tp),
+                       tp=tp)
+        kv = tm.init_kv_cache(cfg, 2, dtype=torch.float32, device=dev, tp=tp)
+        pos = torch.arange(4, dtype=torch.int32, device=dev).expand(2, 4)
+        _, kv = tm.decoder_dense(params, cfg, tokens, pos, kv, xkv,
+                                 n_valid=torch.full((2,), 4, device=dev),
+                                 tp=tp)
+        logits, _ = tm.decoder_step(
+            params, cfg, tokens[:, 0], torch.full((2,), 4, dtype=torch.int32,
+                                                  device=dev),
+            kv, xkv, lo=torch.zeros(2, dtype=torch.int32, device=dev),
+            slot=4, split=0, tp=tp)
+    return cfg, logits.cpu().numpy()
+
+
+def test_tp2_decoder_step_on_card_over_gloo(cuda, tmp_path):
+    """Two processes share cuda:0 over gloo at tp 2: the logits of one
+    decoder_step (K2, K3 / K4 on 2 of 4 heads a rank) equal the one-process
+    step within 1e-4 on both ranks, and the ranks agree bit for bit."""
+    import torch_workers as tw
+    port = tw.free_port()
+    outs = [str(tmp_path / f"r{r}.npy") for r in range(2)]
+    cmds = [[sys.executable, os.path.abspath(__file__), "tp2-step", str(r),
+             str(port), outs[r]] for r in range(2)]
+    tw.run_procs(cmds, str(tmp_path), timeout=300)
+    _, want = _nano_step(None)
+    got = [np.load(o) for o in outs]
+    np.testing.assert_array_equal(got[0], got[1])
+    assert float(np.abs(got[0] - want).max()) <= 1e-4 * float(
+        np.abs(want).max())
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["tp2-step"]:
+    _tp2_step_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

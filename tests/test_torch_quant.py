@@ -315,7 +315,7 @@ def _feed_jax_mel_and_encoder(monkeypatch, jctx, ctx, audio):
     jp, jcfg = jctx.pipeline.params, jctx.config
     encode = jax.jit(lambda p, w: jm.encoder_forward(p, jcfg, w))
 
-    def encoder_forward(params, config, wins, audio_ctx=None):
+    def encoder_forward(params, config, wins, audio_ctx=None, tp=None):
         enc = encode(jp, jnp.asarray(wins.float().numpy()))
         return torch.from_numpy(np.asarray(enc.astype(jnp.float32))).to(
             torch.bfloat16)

@@ -313,7 +313,8 @@ def test_batch_cli(ctx, pico_bin, tmp_path, monkeypatch):
     """gwt-batch over a directory of three WAVs of ragged lengths in
     batches of two: each srt file equals the JAX package's gwt-batch byte
     for byte, and is the port's BatchTranscriber and writer for the same
-    batches; the multi-host flags raise."""
+    batches; the multi-process flags raise without a process group, and
+    a tp that does not divide the heads raises."""
     from godot_whisper_tpu.cli import batch as jax_batch
     from godot_whisper_tpu.runtime import cache as jax_cache
     from godot_whisper_tpu_torch.audio.wav import read_wav
@@ -345,8 +346,11 @@ def test_batch_cli(ctx, pico_bin, tmp_path, monkeypatch):
             assert got == f.read(), n
         assert got == outputs.to_srt(segs), n
     assert all(want)
-    for flags in (["--coordinator", "h:1"], ["--tp", "2"],
-                  ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError, match="parallel/dist.py"):
+    for flags, match in ((["--num-processes", "2"], "need --coordinator"),
+                         (["--process-id", "1"], "need --coordinator"),
+                         (["--backend", "gloo"], "need --coordinator"),
+                         (["--tp", "3"], "must divide n_audio_head=2"),
+                         (["--tp", "2"], "needs a multi-process run")):
+        with pytest.raises(ValueError, match=match):
             port_batch.main([str(wav_dir), "-m", pico_bin, "--device",
                              "cpu"] + flags)

@@ -344,8 +344,8 @@ def test_conv_stem_backward_runs_without_tf32(cfg, batch, monkeypatch):
     seen = []
     stem = tm.conv_stem
 
-    def watched(enc, mel):
-        out = stem(enc, mel)
+    def watched(enc, mel, tp=None):
+        out = stem(enc, mel, tp)
         out.register_hook(
             lambda g: seen.append(torch.backends.cudnn.allow_tf32))
         return out
