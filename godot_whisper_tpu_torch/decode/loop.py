@@ -159,7 +159,7 @@ class WhisperPipeline:
     # ------------------------------------------------------------------ mel
     def set_audio(self, samples: np.ndarray) -> None:
         t0 = time.perf_counter()
-        with tracer.span("mel", n_samples=len(samples)):
+        with tracer.span("gwt.mel", device=self.mel.torch_device, clips=1):
             self._samples = np.asarray(samples, dtype=np.float32)
             self._mel_device, self._mel_n_len = self.mel.device(samples)
             _, self._n_len_org = frame_counts(len(samples))
@@ -333,12 +333,12 @@ class WhisperPipeline:
                      prompt_init, prompt_past, seek_start: int,
                      seek_end: int, no_timestamps: bool) -> List[Segment]:
         t0 = time.perf_counter()
-        with tracer.span("decode_clip", seek=seek_start, seek_end=seek_end):
-            cd = self.clip_decoder(tparams, temperatures, prompt_init,
-                                   no_timestamps)
-            outs = cd.run(self.params, self._mel_device[None],
-                          [self._mel_n_len], [seek_start], [seek_end],
-                          past_init=[list(prompt_past)])
+        cd = self.clip_decoder(tparams, temperatures, prompt_init,
+                               no_timestamps)
+        outs = cd.run(self.params, self._mel_device[None],
+                      [self._mel_n_len], [seek_start], [seek_end],
+                      past_init=[list(prompt_past)])
+        with tracer.span("gwt.emit", windows=int(outs.w[0])):
             self.timings.n_encode += int(outs.w[0])  # one encode per window
             for k in range(int(outs.w[0])):
                 self.timings.n_decode += int(outs.steps[0, k])
@@ -382,11 +382,13 @@ class WhisperPipeline:
         (whisper_encode_internal's window slice, whisper.cpp:1697-1706)."""
         n_ctx = audio_ctx or self.config.n_audio_ctx
         t0 = time.perf_counter()
-        with tracer.span("encode_window", seek=seek, audio_ctx=n_ctx):
+        dev = self._mel_device.device
+        with tracer.span("gwt.encode", device=dev, rows=1):
             wins = mel_windows(self._mel_device[None], np.asarray([seek]),
                                np.asarray([self._mel_n_len]), n_ctx)
             enc = encoder_forward(self.params, self.config, wins,
                                   audio_ctx=audio_ctx or None, tp=self.tp)
+        with tracer.span("gwt.cross_kv", device=dev, rows=1):
             xkv = cross_kv(self.params, self.config, enc, tp=self.tp)
             if quant_kv:
                 xkv = quantize_cross_kv(
@@ -441,8 +443,7 @@ class WhisperPipeline:
                 prompt += prompt_init
                 beam = strategy == "beam" and n_dec > 1 and t_cur < 1e-6
                 t0 = time.perf_counter()
-                with tracer.span("decode_window", seek=seek,
-                                 temperature=t_cur, n_decoders=n_dec):
+                with tracer.span("gwt.window", rung=it, rows=n_dec):
                     if host_mode:
                         # the grammar re-inited per attempt
                         # (whisper.cpp:5228-5232)

@@ -34,6 +34,7 @@ import torch
 from ..ops.qmatmul import QUANT_TYPES
 from ..parallel.collectives import all_reduce, reduce_over
 from ..runtime.device import resolve_device
+from ..runtime.trace import tracer
 from .config import WhisperConfig
 from .model import cross_kv, decoder_dense, encoder_forward, init_kv_cache
 from .params import params_from_jax, params_to_numpy, tree_leaves, tree_map
@@ -251,7 +252,9 @@ def train_step(state: TrainState, config: WhisperConfig, batch: Dict,
     opt = make_optimizer(lr)
     loss, grads = loss_and_grads(state.params, config, batch, device=device,
                                  mesh=mesh)
-    with torch.no_grad():
+    with torch.no_grad(), tracer.span(
+            "gwt.train.optimizer", device=loss.device,
+            leaves=len(tree_leaves(state.params))):
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params)
         params = apply_updates(state.params, updates)

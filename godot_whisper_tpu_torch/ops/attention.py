@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from ..runtime.trace import tracer
 from . import kernels as K
 
 _NEG = -1e30
@@ -146,7 +147,9 @@ class RecomputeAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         saved = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
-        with torch.enable_grad():
+        with torch.enable_grad(), tracer.span(
+                "gwt.attn_recompute", device=grad_out.device,
+                rows=saved[0].shape[0]):
             out = ctx.plain(*saved, ctx.t_valid)
             grads = torch.autograd.grad(out, saved, grad_out)
         return (*grads, None, None, None)

@@ -105,28 +105,29 @@ class BatchTranscriber:
                 out.append(list(pipe.full(tparams, clip)))
             return out
 
-        prompt_init, no_timestamps = self._prompt_init(tparams)
-        t0 = time.perf_counter()
-        with tracer.span("mel_batch", n_clips=len(clips)):
-            mel, n_lens = pipe.mel.device_batch(clips)
-        t1 = time.perf_counter()
-        pipe.timings.t_mel_us += int((t1 - t0) * 1e6)
+        with tracer.span("gwt.batch", clips=len(clips)):
+            prompt_init, no_timestamps = self._prompt_init(tparams)
+            t0 = time.perf_counter()
+            with tracer.span("gwt.mel", device=pipe.mel.torch_device,
+                             clips=len(clips)):
+                mel, n_lens = pipe.mel.device_batch(clips)
+            t1 = time.perf_counter()
+            pipe.timings.t_mel_us += int((t1 - t0) * 1e6)
 
-        if tparams.initial_prompt:
-            init_tokens = pipe.tokenizer.encode(tparams.initial_prompt)
-        else:
-            init_tokens = list(tparams.prompt_tokens or [])
-        s0 = tparams.offset_ms // 10
-        seek_ends = [frame_counts(len(c))[1] if tparams.duration_ms == 0
-                     else s0 + tparams.duration_ms // 10 for c in clips]
-        with tracer.span("decode_batch", n_clips=len(clips)):
+            if tparams.initial_prompt:
+                init_tokens = pipe.tokenizer.encode(tparams.initial_prompt)
+            else:
+                init_tokens = list(tparams.prompt_tokens or [])
+            s0 = tparams.offset_ms // 10
+            seek_ends = [frame_counts(len(c))[1] if tparams.duration_ms == 0
+                         else s0 + tparams.duration_ms // 10 for c in clips]
             cd = self._clip_decoder(tparams, len(clips), prompt_init,
                                     no_timestamps)
             outs = cd.run(pipe.params, mel, n_lens, [s0] * len(clips),
                           seek_ends,
                           past_init=[list(init_tokens) for _ in clips])
             segments = self._emit(outs, clips, prompt_init, tparams)
-        pipe.timings.t_decode_us += int((time.perf_counter() - t1) * 1e6)
+            pipe.timings.t_decode_us += int((time.perf_counter() - t1) * 1e6)
         return segments
 
     def transcribe_many(self, batches: Iterable[List[np.ndarray]],
@@ -146,31 +147,35 @@ class BatchTranscriber:
         anchors.  Also counts the batch's waves in the pipeline's
         Timings."""
         pipe: WhisperPipeline = self.ctx.pipeline
-        tm = pipe.timings
-        for k in range(int(outs.w.max(initial=0))):
-            b = int(np.flatnonzero(outs.w > k)[0])  # a stream in wave k
-            tm.n_encode += 1
-            tm.n_decode += int(outs.steps[b, k])
-        segments: List[List[Segment]] = [[] for _ in clips]
-        saved = (pipe.segments, pipe._samples, pipe._energy, pipe._ts_state)
-        try:
-            for b in range(len(clips)):
-                pipe.segments = segments[b]
-                pipe._ts_state = {"t_beg": 0, "t_last": 0, "tid_last": 0}
-                if tparams.token_timestamps:
-                    from ..decode.timestamps import signal_energy
-                    pipe._samples = np.asarray(clips[b], dtype=np.float32)
-                    pipe._energy = signal_energy(pipe._samples, 32)
-                else:
-                    pipe._samples = pipe._energy = None
-                for k in range(int(outs.w[b])):
-                    if bool(outs.emitted[b, k]):
-                        pipe._emit_segments(outs.window_result(b, k), 0, [],
-                                            prompt_init, int(outs.seek[b, k]),
-                                            tparams)
+        with tracer.span("gwt.emit", windows=int(outs.w.sum())):
+            tm = pipe.timings
+            for k in range(int(outs.w.max(initial=0))):
+                b = int(np.flatnonzero(outs.w > k)[0])  # a stream in wave k
+                tm.n_encode += 1
+                tm.n_decode += int(outs.steps[b, k])
+            segments: List[List[Segment]] = [[] for _ in clips]
+            saved = (pipe.segments, pipe._samples, pipe._energy,
+                     pipe._ts_state)
+            try:
+                for b in range(len(clips)):
+                    pipe.segments = segments[b]
+                    pipe._ts_state = {"t_beg": 0, "t_last": 0,
+                                      "tid_last": 0}
+                    if tparams.token_timestamps:
+                        from ..decode.timestamps import signal_energy
+                        pipe._samples = np.asarray(clips[b],
+                                                   dtype=np.float32)
+                        pipe._energy = signal_energy(pipe._samples, 32)
                     else:
-                        tm.n_fail_p += 1
-        finally:
-            (pipe.segments, pipe._samples, pipe._energy,
-             pipe._ts_state) = saved
+                        pipe._samples = pipe._energy = None
+                    for k in range(int(outs.w[b])):
+                        if bool(outs.emitted[b, k]):
+                            pipe._emit_segments(
+                                outs.window_result(b, k), 0, [], prompt_init,
+                                int(outs.seek[b, k]), tparams)
+                        else:
+                            tm.n_fail_p += 1
+            finally:
+                (pipe.segments, pipe._samples, pipe._energy,
+                 pipe._ts_state) = saved
         return segments

@@ -15,12 +15,10 @@ class Timings:
     t_mel_us: int = 0
     t_encode_us: int = 0
     t_decode_us: int = 0
-    t_sample_us: int = 0
     t_load_us: int = 0
 
     n_encode: int = 0
     n_decode: int = 0
-    n_sample: int = 0
 
     # temperature-fallback counters (whisper.cpp:782-783)
     n_fail_p: int = 0  # avg-logprob gate failures

@@ -12,9 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "godot_whisper_tpu_torch"
-MODULES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "profile_torch_main_path.py",
-                                        ROOT / "kernel_device_times.py"]
+MODULES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -132,8 +130,7 @@ def test_serving_and_streaming_modules_leave_jax_unloaded():
     assert out.stdout.split() == ["False", "False"], out.stdout
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "profile_torch_main_path.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py"])
 def test_chip_scripts_refuse_without_cuda(script):
     """Without a CUDA device the chip scripts exit non-zero and print no
     result line."""
