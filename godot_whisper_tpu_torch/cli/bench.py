@@ -388,7 +388,8 @@ def kernel_cases(dev) -> List[KernelCase]:
         4 * 6 * 1536 * 64 * 2, 4 * 6 * 1536 * 1500 * 64, "bf16"))
 
     # K3: tiny.en self-attention at step 100 (prompt capacity 232, 102
-    # slots a row); K4: cross-attention, 5 rows sharing 1500 slots.  The
+    # slots a row), hi read on the device as the token loop's graph
+    # passes it; K4: cross-attention, 5 rows sharing 1500 slots.  The
     # library call: SDPA with a boolean key mask
     def dattn(key, name, kv_group, c, lo, split, hi, layer, row_slots,
               kv_slots):
@@ -396,6 +397,8 @@ def kernel_cases(dev) -> List[KernelCase]:
         qd = tens(b, s)
         kd, vd = (tens(4, b // kv_group, c, s) for _ in range(2))
         lo_t = torch.tensor(lo, dtype=torch.int32, device=dev)
+        hi_k = (torch.tensor([hi], dtype=torch.int32, device=dev) if hi
+                else hi)
         kw = dict(split=split, n_head=h, kv_group=kv_group, layer=layer)
         ql = qd.view(b, h, 1, s // h)
         kl, vl = (x[layer].view(-1, c, h, s // h).transpose(1, 2).expand(
@@ -406,13 +409,14 @@ def kernel_cases(dev) -> List[KernelCase]:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         cases.append(KernelCase(
             key, name,
-            lambda: D.decode_attention(qd, kd, vd, lo_t, hi, **kw),
+            lambda: D.decode_attention(qd, kd, vd, lo_t, hi_k, **kw),
             lambda: D.decode_attention_plain(qd, kd, vd, lo_t, hi, **kw),
             lambda: sdpa(ql, kl, vl, attn_mask=mask),
             2 * kv_slots * s * 2 + b * s * 2 + b * s * 4,
             4 * row_slots * s, "bf16"))
     dattn("decode_attn_k3",
-          "K3 decode_attention self (5 rows, C 512, step 100)", 1, 512,
+          "K3 decode_attention self (5 rows, C 512, step 100, hi on the "
+          "device)", 1, 512,
           [1] * 5, 232, 333, 2, 5 * 102, 5 * 102)
     dattn("decode_attn_k4",
           "K4 decode_attention cross (5 rows, kv_group 5, 1500 slots)", 5,

@@ -10,7 +10,9 @@
 //
 //   q (B, S); k, v the full stacked caches (L, B / kv_group, C, S) read at
 //   `layer` by pointer offset (never a per-layer copy); slot c of row b is
-//   valid iff c < lo[b] or split <= c < hi; per-head softmax of
+//   valid iff c < lo[b] or split <= c < hi (hi read from `hi_ptr` on the
+//   device when that is not null, so a CUDA graph can replay every step of
+//   the token loop); per-head softmax of
 //   q . k / sqrt(D) in f32 with f32 p; out (B, S) f32.
 //
 // Self-attention passes lo = prompt length, split = prompt capacity,
@@ -46,16 +48,18 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const int* __restrict__ lo,
                         float* __restrict__ out, float* __restrict__ ws,
                         int* __restrict__ tickets, int layer, int n_groups,
-                        int C, int S, int split, int hi, float scale,
+                        int C, int S, int split, int hi,
+                        const int* __restrict__ hi_ptr, float scale,
                         int slice, int n_split) {
   using L = dsplit::Lay<T, D>;
   __shared__ dsplit::Smem<D> sm;
   const int g = blockIdx.x, h = blockIdx.y, i = blockIdx.z, H = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // q does not depend on lo: its loads go out beside lo's
+  // q does not depend on lo or hi: its loads go out beside theirs
   const int d0 = (lane % L::kLpr) * L::kVec;
   float qv[R][L::kVec];
   dsplit::load_q<T, D, R>(q, g * R, S, h * D + d0, qv);
+  if (hi_ptr != nullptr) hi = *hi_ptr;
   int lo_r[R];
   int lo_max = 0;
 #pragma unroll
@@ -108,13 +112,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D, int R>
 int launch(const void* q, const void* k, const void* v, const void* lo,
            void* out, void* ws, void* tickets, int layer, int n_groups, int C,
-           int S, int n_head, int split, int hi, float scale, int slice,
-           int n_split, cudaStream_t stream) {
+           int S, int n_head, int split, int hi, const void* hi_ptr,
+           float scale, int slice, int n_split, cudaStream_t stream) {
   const dim3 grid(n_groups, n_head, n_split);
   decode_split_kernel<T, D, R><<<grid, kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)lo, (float*)out,
-      (float*)ws, (int*)tickets, layer, n_groups, C, S, split, hi, scale,
-      slice, n_split);
+      (float*)ws, (int*)tickets, layer, n_groups, C, S, split, hi,
+      (const int*)hi_ptr, scale, slice, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -122,12 +126,13 @@ template <typename T, int D>
 int launch_rows(int kv_group, const void* q, const void* k, const void* v,
                 const void* lo, void* out, void* ws, void* tickets, int layer,
                 int n_groups, int C, int S, int n_head, int split, int hi,
-                float scale, int slice, int n_split, cudaStream_t stream) {
+                const void* hi_ptr, float scale, int slice, int n_split,
+                cudaStream_t stream) {
 #define GWT_ROWS(R)                                                         \
   case R:                                                                   \
     return launch<T, D, R>(q, k, v, lo, out, ws, tickets, layer, n_groups,  \
-                           C, S, n_head, split, hi, scale, slice, n_split,  \
-                           stream)
+                           C, S, n_head, split, hi, hi_ptr, scale, slice,   \
+                           n_split, stream)
   switch (kv_group) {
     GWT_ROWS(1); GWT_ROWS(2); GWT_ROWS(3); GWT_ROWS(4);
     GWT_ROWS(5); GWT_ROWS(6); GWT_ROWS(7); GWT_ROWS(8);
@@ -141,13 +146,15 @@ int launch_rows(int kv_group, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32 or 64.  kv_group <= 8.
 // ws: (n_groups * n_head * n_split * kv_group) * (head_dim + 2) floats;
 // tickets: n_groups * n_head ints, 0 on entry and left at 0.  slice: a
-// multiple of 64 with n_split * slice >= C and n_split <= 128.
+// multiple of 64 with n_split * slice >= C and n_split <= 128.  hi_ptr:
+// null, or one int on the device that every CTA reads in place of hi.
 extern "C" int gwt_decode_attn(const void* q, const void* k, const void* v,
                                const void* lo, void* out, void* ws,
                                void* tickets, int layer, int n_groups, int C,
                                int S, int n_head, int kv_group, int split,
-                               int hi, float scale, int slice, int n_split,
-                               int dtype, void* stream) {
+                               int hi, const void* hi_ptr, float scale,
+                               int slice, int n_split, int dtype,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int hd = S / n_head;
   if (kv_group < 1 || kv_group > dsplit::kMaxRows || slice % kChunk
@@ -156,8 +163,8 @@ extern "C" int gwt_decode_attn(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 #define GWT_DEC(T, D)                                                       \
   return launch_rows<T, D>(kv_group, q, k, v, lo, out, ws, tickets, layer,  \
-                           n_groups, C, S, n_head, split, hi, scale, slice, \
-                           n_split, s)
+                           n_groups, C, S, n_head, split, hi, hi_ptr,       \
+                           scale, slice, n_split, s)
   if (dtype == 0 && hd == 64) GWT_DEC(float, 64);
   if (dtype == 0 && hd == 32) GWT_DEC(float, 32);
   if (dtype == 1 && hd == 64) GWT_DEC(__nv_bfloat16, 64);

@@ -30,12 +30,11 @@ import numpy as np
 import torch
 
 from ..models.config import WhisperConfig
-from ..models.model import cross_kv, encoder_forward, quantize_cross_kv
-from ..parallel.collectives import tp_size
+from ..models.model import encoder_forward
 from ..runtime.trace import tracer
 from .filters import FilterContext
-from .window import (WindowResult, WindowStatics, prompt_pass_grouped,
-                     run_decode_loop, use_split_cache)
+from .window import (StepGraphs, WindowResult, WindowStatics,
+                     prompt_pass_grouped, run_decode_loop, use_split_cache)
 
 SEEK_DELTA_FULL = 3000
 
@@ -131,12 +130,15 @@ class ClipDecoder:
     """Drives the whole-clip decode of a batch of streams."""
 
     def __init__(self, config: WhisperConfig, fctx: FilterContext,
-                 statics: ClipStatics, init_tokens: List[int], tp=None):
+                 statics: ClipStatics, init_tokens: List[int], tp=None,
+                 graphs: Optional[StepGraphs] = None):
         if len(init_tokens) != statics.n_init:
             raise ValueError("init_tokens length != statics.n_init")
         self.config = config
         self.fctx = fctx
         self.tp = tp  # the mesh's tp group (models/model.py)
+        # the token loop's captured steps (decode/window.py)
+        self.graphs = graphs if graphs is not None else StepGraphs()
         self.statics = statics
         self.init_tokens = np.asarray(init_tokens, np.int32)
         self.past_cap = config.n_text_ctx // 2
@@ -226,10 +228,9 @@ class ClipDecoder:
                         params, config, mel_windows(mel, seek, n_len, n_ctx),
                         audio_ctx=s.audio_ctx or None, tp=self.tp)
                 with tracer.span("gwt.cross_kv", device=dev, rows=B):
-                    xkv = cross_kv(params, config, enc, tp=self.tp)
-                    if s.cross_int8:
-                        xkv = quantize_cross_kv(
-                            xkv, config.n_text_head // tp_size(self.tp))
+                    # into the buffer that the step's graph reads
+                    xkv = self.graphs.cross_kv(params, config, enc,
+                                               s.cross_int8, tp=self.tp)
 
                 # stale context near the end of audio (whisper.cpp:5176-5180)
                 cnt = np.where(active & (seek > seek_start)
@@ -253,6 +254,7 @@ class ClipDecoder:
                 while t_idx < n_temps and (t_idx == 0 or not settled.all()):
                     temp = float(np.float32(s.temps[t_idx]))
                     wst = self._wst(t_idx)
+                    g = self.graphs.get(params, wst, xkv)
                     with tracer.span("gwt.prompt", rung=t_idx, rows=B):
                         prompt, n_prompt, n_take, used_past = \
                             self._build_prompt(past_buf, cnt,
@@ -260,14 +262,15 @@ class ClipDecoder:
                         last, kv = prompt_pass_grouped(
                             params, config, torch.from_numpy(prompt).to(dev),
                             n_prompt, xkv, ND, n_max=N_MAX,
-                            repeat_kv=not use_split_cache(wst), tp=self.tp)
+                            repeat_kv=not use_split_cache(wst), tp=self.tp,
+                            out=None if g is None else g.kv)
                     # sampling rungs seed each attempt with seed + rung index
                     with tracer.span("gwt.token_loop", rung=t_idx) as sp:
                         ls = run_decode_loop(
                             params, config, self.fctx, wst, xkv, kv, last,
                             rep(n_prompt), temp, rep(seek), rep(seek_end),
-                            s.seed + t_idx)
-                        sp.set(steps=ls.n_steps)
+                            s.seed + t_idx, graph=g)
+                        sp.set(steps=ls.n_steps, graph_steps=ls.graph_steps)
 
                     # ---- per-stream ranking + gates (whisper.cpp:5611-5671)
                     with tracer.span("gwt.gates"):

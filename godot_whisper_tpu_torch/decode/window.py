@@ -25,7 +25,12 @@ tensors:
   with the result_len == 0 rescue, the weightless-stub fast path and the
   final-step repetition failure (whisper.cpp:5421-5507);
 - the JAX loop's unconditional extra decoder step after the last token
-  (an XLA workaround) is skipped.
+  (an XLA workaround) is skipped;
+- on a CUDA device, outside beam search and tensor parallelism, the
+  decoder step is one CUDA graph of the batch's shape (``StepGraph``),
+  replayed every step after one upload of the step's tokens, positions,
+  cache slot and sampler state: the same kernels in the same order,
+  without ~330 launches from the host a step.
 """
 
 from __future__ import annotations
@@ -37,11 +42,14 @@ import numpy as np
 import torch
 
 from ..models.config import WhisperConfig
-from ..models.model import (KVCache, decoder_dense, decoder_step,
+from ..models.model import (KVCache, cross_kv, decoder_dense, decoder_step,
                             init_kv_cache, param_compute_dtype,
-                            round_cache_len)
+                            quantize_cross_kv, round_cache_len)
+from ..ops import kernels as K
+from ..ops.cross_attention import w8a8_default
 from ..ops.filter_sample import fused_filter_sample, fused_filter_topk
 from ..ops.kv_reorder import reorder_kv_live
+from ..parallel.collectives import tp_size
 from ..runtime.trace import tracer
 from .filters import FilterContext
 
@@ -64,6 +72,7 @@ class WindowResult(NamedTuple):
     result_len: np.ndarray
     sum_logprobs_all: np.ndarray
     n_steps: int
+    graph_steps: int = 0    # n_steps when the decoder steps ran by replay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,20 +109,196 @@ def use_split_cache(statics: WindowStatics) -> bool:
             and statics.beam_size * statics.config.n_text_head <= 128)
 
 
+def _one_cuda_device(device, tp) -> bool:
+    """Where a decoder step can replay a captured CUDA graph: tensors on a
+    CUDA device (CPU tensors take the plain versions, eagerly), and one
+    device (``tp`` None: NCCL collectives under capture have never run
+    across cards)."""
+    return torch.device(device).type == "cuda" and tp is None
+
+
+def graph_eligible(statics: WindowStatics, device) -> bool:
+    """Whether a window's decoder steps replay one captured CUDA graph,
+    decided from what the loop sees: ``_one_cuda_device``, and not beam
+    search (the split cache's row map, K7's input, and the merged cache's
+    swap with its twin after K8 change every step)."""
+    return (_one_cuda_device(device, statics.tp)
+            and statics.strategy != "beam")
+
+
+class StepGraph:
+    """One batch shape's ``decoder_step`` captured as a CUDA graph, with the
+    static buffers that the capture reads and writes: the step's token ids,
+    positions and cache slot (beside them the sampler's state, so a step
+    makes one upload), the prompt lengths ``lo``, the self-KV cache, and
+    the cross-KV (``StepGraphs.cross_kv``'s buffer).  The prompt pass writes
+    the self-KV in place (its ``out=``).  The shape's first step runs once
+    eagerly on the capture stream (the split-cache tickets, the kernels'
+    libraries and cuBLAS's workspace exist after it), then is captured;
+    every step replays the graph, whose kernels write ``logits``, and adds
+    the step's launches to the kernel wrappers' counters."""
+
+    def __init__(self, statics: WindowStatics, device: torch.device,
+                 cdtype: torch.dtype, xkv):
+        config = statics.config
+        B = statics.batch
+        L, S = config.n_text_layer, config.n_text_state
+        self.batch, self.kv_group = B, statics.kv_group
+        self.prompt_pad, self.device = statics.prompt_pad, device
+        cap = round_cache_len(statics.prompt_pad + statics.n_max)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.kv = KVCache(k=zeros((L, B, cap, S), cdtype),
+                          v=zeros((L, B, cap, S), cdtype))
+        self.xkv = xkv
+        self.lo = zeros((B,), torch.int32)
+        # the step's upload: tokens (B), positions (B), slot (1), padding
+        # to 16 bytes, the sampler's state (B, 7)
+        self._state_at = -(-(2 * B + 1) // 4) * 4
+        n = self._state_at + 7 * B
+        self._host = torch.zeros(n, dtype=torch.int32).pin_memory()
+        self._host_np = self._host.numpy()
+        self._inp = zeros((n,), torch.int32)
+        self.state = self._inp[self._state_at:].view(B, 7)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self._launches: Optional[K.CapturedLaunches] = None
+
+    def load(self, kv: KVCache, xkv, n_prompt: np.ndarray) -> None:
+        """A window's prompt lengths into ``lo``; its caches must be the
+        graph's own buffers, written in place."""
+        if (kv.k is not self.kv.k or kv.v is not self.kv.v
+                or type(xkv) is not type(self.xkv)
+                or any(a is not b for a, b in zip(xkv[:-1], self.xkv[:-1]))):
+            raise ValueError("StepGraph.load: the caches are not the graph's "
+                             "buffers")
+        self.lo.copy_(torch.from_numpy(np.array(n_prompt, np.int32)))
+
+    def set_state(self, state: np.ndarray) -> torch.Tensor:
+        """The sampler's state (B, 7) for the next upload; returns its
+        device view."""
+        self._host_np[self._state_at:] = state.reshape(-1)
+        return self.state
+
+    def upload(self) -> None:
+        """The host buffer to the device, in stream order (the loop's
+        synchronisation on K5's outputs comes before the host writes the
+        buffer again)."""
+        self._inp.copy_(self._host, non_blocking=True)
+
+    def step(self, params, config: WhisperConfig, tokens: np.ndarray,
+             positions: np.ndarray, slot: int) -> torch.Tensor:
+        """One decoder step by replay (by capture first); returns the
+        static logits (B, V) f32."""
+        B = self.batch
+        self._host_np[:B] = tokens
+        self._host_np[B:2 * B] = positions
+        self._host_np[2 * B] = slot
+        self.upload()
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture(params, config)
+            self.graph.replay()
+        self._launches.add()
+        return self.logits
+
+    def _capture(self, params, config: WhisperConfig) -> None:
+        B = self.batch
+
+        def run():
+            return decoder_step(
+                params, config, self._inp[:B], self._inp[B:2 * B], self.kv,
+                self.xkv, lo=self.lo, slot=self._inp[2 * B:2 * B + 1],
+                split=self.prompt_pad, kv_group=self.kv_group)[0]
+
+        with tracer.span("gwt.step.capture", rows=B):
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                run()                # writes the step's K/V, as the replay
+            graph = torch.cuda.CUDAGraph()
+            with K.CapturedLaunches() as launches, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                self.logits = run()
+            cur.wait_stream(side)
+            self.graph, self._launches = graph, launches
+
+
+class StepGraphs:
+    """A pipeline's token-loop graph: the cross-KV buffer that its windows'
+    ``cross_kv`` writes, and one captured step (``StepGraph``) that reads
+    it, for one batch shape at a time.  A window of another shape captures
+    anew, and a cross-KV of another shape or other weights drops the step
+    with the buffer.  Both stay allocated between windows.  One window uses
+    them at a time, as the pipeline runs one ``full`` at a time."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        """Drop the buffer and the captured step."""
+        self._params = self._xkv_key = self._xkv = None
+        self._key = self._graph = None
+
+    def cross_kv(self, params, config: WhisperConfig, enc: torch.Tensor,
+                 quant: bool, tp=None):
+        """The cross-KV of ``enc`` (int8 with ``quant``), written into the
+        buffer a step graph reads where one can replay (a CUDA device, one
+        device), else a new one: ``models/model.py::cross_kv``, then
+        ``quantize_cross_kv``.  It holds until the next call."""
+        out, key = None, None
+        if _one_cuda_device(enc.device, tp):
+            key = (enc.device, enc.shape[0], enc.shape[1], quant)
+            if params is not self._params or key != self._xkv_key:
+                self.clear()
+                self._params = params
+            out = self._xkv
+        xkv = cross_kv(params, config, enc, tp=tp,
+                       out=None if quant else out)
+        if quant:
+            xkv = quantize_cross_kv(xkv, config.n_text_head // tp_size(tp),
+                                    out=out)
+        if key is not None:
+            self._xkv_key, self._xkv = key, xkv
+        return xkv
+
+    def get(self, params, statics: WindowStatics,
+            xkv) -> Optional[StepGraph]:
+        """The StepGraph of this window's shape; None where the steps run
+        eagerly: not ``graph_eligible``, or ``xkv`` is not the buffer
+        (a cross-KV made elsewhere than ``cross_kv``)."""
+        if (not graph_eligible(statics, xkv.device) or params is not
+                self._params or self._xkv is None
+                or xkv[0] is not self._xkv[0]):
+            return None
+        key = (statics.batch, statics.kv_group, statics.prompt_pad,
+               statics.n_max, w8a8_default())
+        if key != self._key:
+            self._graph = None           # its buffers go before the new ones
+            self._key, self._graph = key, StepGraph(
+                statics, xkv.device, param_compute_dtype(params), self._xkv)
+        return self._graph
+
+
 def prompt_pass_per_stream(params, config: WhisperConfig,
                            prompt: torch.Tensor, n_prompt: np.ndarray,
-                           xkv, n_max: Optional[int] = None, tp=None):
+                           xkv, n_max: Optional[int] = None, tp=None,
+                           out: Optional[KVCache] = None):
     """Per-stream prompt decode: each row its own prompt (B, P) with its
     own length; ``xkv`` a CrossKV or an int8 QuantCrossKV.  The cache holds
     P + n_max slots; the padded prompt capacity P is the decode loop's
-    ``split``.  Returns (last_logits
-    (B, V) f32, kv)."""
+    ``split``.  ``out``: a cache of that shape, zeroed and written in
+    place (a ``StepGraph``'s).  Returns (last_logits (B, V) f32, kv)."""
     B, P = prompt.shape
     dev = prompt.device
     kv0 = init_kv_cache(config, B,
                         cache_len=P + (n_max if n_max is not None
                                        else config.n_text_ctx // 2 - 4),
-                        dtype=param_compute_dtype(params), device=dev, tp=tp)
+                        dtype=param_compute_dtype(params), device=dev, tp=tp,
+                        out=out)
     positions = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
     n_prompt_t = torch.as_tensor(np.asarray(n_prompt, np.int64).reshape(B),
                                  device=dev)
@@ -126,21 +311,28 @@ def prompt_pass_per_stream(params, config: WhisperConfig,
 def prompt_pass_grouped(params, config: WhisperConfig, prompt: torch.Tensor,
                         n_prompt: np.ndarray, xkv, n_dec: int,
                         n_max: Optional[int] = None, repeat_kv: bool = True,
-                        tp=None):
+                        tp=None, out: Optional[KVCache] = None):
     """Grouped prompt pass: G streams decode their prompts ONCE, then the
     logits and self-KV repeat to each stream's n_dec decoder rows
     (kv_cache_seq_cp 0 -> j per stream, whisper.cpp:5277).  With
     ``repeat_kv=False`` the self-KV keeps its G rows: the split-cache beam
-    loop stores the prompt once per group."""
+    loop stores the prompt once per group.  ``out``: the repeated cache is
+    written there (a ``StepGraph``'s); None writes a new one."""
     last, kv = prompt_pass_per_stream(params, config, prompt, n_prompt, xkv,
-                                      n_max=n_max, tp=tp)
+                                      n_max=n_max, tp=tp,
+                                      out=out if n_dec == 1 else None)
     if n_dec == 1:
         return last, kv
     last = last.repeat_interleave(n_dec, dim=0)
     if not repeat_kv:
         return last, kv
-    return last, KVCache(k=kv.k.repeat_interleave(n_dec, dim=1),
-                         v=kv.v.repeat_interleave(n_dec, dim=1))
+    l, g, c, w = kv.k.shape
+    if out is None:
+        out = KVCache(k=kv.k.new_empty((l, g * n_dec, c, w)),
+                      v=kv.v.new_empty((l, g * n_dec, c, w)))
+    for src, dst in zip(kv, out):
+        dst.view(l, g, n_dec, c, w).copy_(src[:, :, None])
+    return last, out
 
 
 def _attempt_seed(rng_seed: int, step: int) -> int:
@@ -229,19 +421,27 @@ def permute_rowmap(rowmap: np.ndarray, src: np.ndarray, i: int,
 def run_decode_loop(params, config: WhisperConfig, fctx: FilterContext,
                     statics: WindowStatics, xkv, kv: KVCache,
                     last_logits: torch.Tensor, n_prompt, temperature: float,
-                    seek, seek_end, rng_seed: int) -> WindowResult:
+                    seek, seek_end, rng_seed: int,
+                    graph: Optional[StepGraph] = None) -> WindowResult:
     """The autoregressive window loop given a finished prompt pass.
     ``n_prompt``, ``seek`` and ``seek_end`` are per row (or scalars).  In
     split-cache beam mode ``kv`` is the prompt pass's cache with one row
     per group (``prompt_pass_grouped(..., repeat_kv=False)``); otherwise it
-    has one row per decoder."""
+    has one row per decoder.  ``graph``: the StepGraph of this shape
+    (``StepGraphs.get``): ``kv`` and ``xkv`` are its buffers, and its
+    replay runs the decoder steps; None runs them eagerly."""
     B, N_MAX = statics.batch, statics.n_max
     eot, beg = fctx.token_eot, fctx.token_beg
     dev = last_logits.device
     n_prompt = np.broadcast_to(np.asarray(n_prompt, np.int32), (B,))
     seek = np.broadcast_to(np.asarray(seek, np.int32), (B,))
     seek_end = np.broadcast_to(np.asarray(seek_end, np.int32), (B,))
-    lo = torch.as_tensor(n_prompt.copy(), device=dev)
+    if graph is None:
+        lo = torch.as_tensor(n_prompt.copy(), device=dev)
+    elif not graph_eligible(statics, dev):
+        raise ValueError("run_decode_loop: this window's steps run eagerly")
+    else:
+        graph.load(kv, xkv, n_prompt)
 
     beam = statics.strategy == "beam"
     KB = statics.beam_size
@@ -288,11 +488,15 @@ def run_decode_loop(params, config: WhisperConfig, fctx: FilterContext,
         state = np.stack([np.full(B, int(i == 0)), last, penult,
                           np.full(B, i), has_ts, seek_delta,
                           np.full(B, argmax_flag)], axis=1).astype(np.int32)
+        if graph is not None:
+            return graph.set_state(state)    # uploaded with the step
         return torch.from_numpy(state).to(dev)
 
     logits = last_logits.float().contiguous()
     with tracer.span("gwt.step.state"):
         state = step_state(0)
+        if graph is not None:
+            graph.upload()
     for i in range(N_MAX):
         live = ~(completed | failed)
         # ONE device -> host transfer of the step's outputs per step (int32
@@ -414,21 +618,27 @@ def run_decode_loop(params, config: WhisperConfig, fctx: FilterContext,
         # prompt_pad + i (live slot i in the split cache), the true position
         # n_prompt + i drives the positional embedding
         with tracer.span("gwt.step.forward"):
-            logits, kv = decoder_step(
-                params, config,
-                torch.from_numpy(tokens[:, i].copy()).to(dev),
-                torch.from_numpy((n_prompt + i).astype(np.int32)).to(dev),
-                kv, xkv, lo=lo, slot=i if split else statics.prompt_pad + i,
-                split=statics.prompt_pad, kv_group=statics.kv_group,
-                kv_prompt=kv_prompt,
-                rowmap=torch.from_numpy(rowmap).to(dev) if split else None,
-                tp=statics.tp)
+            if graph is not None:
+                logits = graph.step(params, config, tokens[:, i],
+                                    n_prompt + i, statics.prompt_pad + i)
+            else:
+                logits, kv = decoder_step(
+                    params, config,
+                    torch.from_numpy(tokens[:, i].copy()).to(dev),
+                    torch.from_numpy((n_prompt + i).astype(np.int32)).to(dev),
+                    kv, xkv, lo=lo,
+                    slot=i if split else statics.prompt_pad + i,
+                    split=statics.prompt_pad, kv_group=statics.kv_group,
+                    kv_prompt=kv_prompt,
+                    rowmap=torch.from_numpy(rowmap).to(dev) if split else None,
+                    tp=statics.tp)
 
     return WindowResult(
         tokens=tokens, tok_p=tok_p, tok_plog=tok_plog, tok_pt=tok_pt,
         tok_ptsum=tok_ptsum, tok_tid=tok_tid, completed=completed,
         failed=failed, has_ts=has_ts, seek_delta=seek_delta,
-        result_len=result_len, sum_logprobs_all=sum_lp, n_steps=i + 1)
+        result_len=result_len, sum_logprobs_all=sum_lp, n_steps=i + 1,
+        graph_steps=0 if graph is None else i + 1)
 
 
 class WindowDecoder:
@@ -437,10 +647,11 @@ class WindowDecoder:
     ``beam_size`` beams)."""
 
     def __init__(self, config: WhisperConfig, fctx: FilterContext,
-                 tp=None):
+                 tp=None, graphs: Optional[StepGraphs] = None):
         self.config = config
         self.fctx = fctx
         self.tp = tp
+        self.graphs = graphs if graphs is not None else StepGraphs()
 
     def decode(self, params, xkv, prompt_tokens: np.ndarray, *,
                n_decoders: int, temperature: float, seek: int, seek_end: int,
@@ -448,9 +659,11 @@ class WindowDecoder:
                single_segment: bool, max_tokens: int, test_mode: bool,
                seed: int = 0, strategy: str = "greedy", beam_size: int = 1,
                force_merged_cache: bool = False) -> WindowResult:
-        """``xkv`` is a CrossKV or an int8 QuantCrossKV.
-        ``force_merged_cache`` (tests) takes the wide configurations' beam
-        path, the merged cache reordered by K8, at any width."""
+        """``xkv`` is a CrossKV or an int8 QuantCrossKV; the steps replay
+        a CUDA graph where ``graphs.get`` gives one (``xkv`` made by
+        ``graphs.cross_kv``).  ``force_merged_cache`` (tests) takes the
+        wide configurations' beam path, the merged cache reordered by K8,
+        at any width."""
         config = self.config
         n_max = config.n_text_ctx // 2 - 4  # whisper.cpp:5288
         P = int(len(prompt_tokens))
@@ -469,16 +682,18 @@ class WindowDecoder:
             test_mode=test_mode, kv_group=n_decoders, strategy=strategy,
             beam_size=beam_size, force_merged_cache=force_merged_cache,
             tp=self.tp)
+        graph = self.graphs.get(params, statics, xkv)
         with tracer.span("gwt.prompt", rows=1):
             prompt = np.zeros((1, pad), np.int32)
             prompt[0, :P] = prompt_tokens
             last, kv = prompt_pass_grouped(
                 params, config, torch.from_numpy(prompt).to(xkv.device),
                 np.asarray([P]), xkv, n_decoders, n_max=n_max,
-                repeat_kv=not use_split_cache(statics), tp=self.tp)
+                repeat_kv=not use_split_cache(statics), tp=self.tp,
+                out=None if graph is None else graph.kv)
         with tracer.span("gwt.token_loop") as sp:
             res = run_decode_loop(params, config, self.fctx, statics, xkv,
                                   kv, last, P, temperature, seek, seek_end,
-                                  seed)
-            sp.set(steps=res.n_steps)
+                                  seed, graph=graph)
+            sp.set(steps=res.n_steps, graph_steps=res.graph_steps)
         return res

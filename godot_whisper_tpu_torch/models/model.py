@@ -335,47 +335,73 @@ class QuantCrossKV(NamedTuple):
         return self.k_q.device
 
 
-def quantize_cross_kv(xkv: CrossKV, n_head: int) -> QuantCrossKV:
+def quantize_cross_kv(xkv: CrossKV, n_head: int,
+                      out: Optional[QuantCrossKV] = None) -> QuantCrossKV:
     """The JAX package's rounding points as its jitted window encode
     computes them: absmax scales in f32 (XLA compiles ``/ 127.0`` to
     ``* f32(1/127)``); q = round(x / max(scale, 1e-9)) clipped to
     [-127, 127]; then k_s padded to 128 lanes and rounded to bf16, v_s kept
-    f32."""
+    f32.  ``out``: tensors of the result's shapes whose scale lanes past
+    n_head are 0, written in place (the token loop's CUDA graph reads
+    them); None writes new ones."""
     l, b, t, s = xkv.k.shape
     d = s // n_head
+    if out is None:
+        dev = xkv.k.device
+        out = QuantCrossKV(
+            k_q=torch.empty((l, b, t, s), dtype=torch.int8, device=dev),
+            k_s=torch.zeros((l, b, t, H_PAD), dtype=torch.bfloat16,
+                            device=dev),
+            v_q=torch.empty((l, b, t, s), dtype=torch.int8, device=dev),
+            v_s=torch.zeros((l, b, H_PAD), dtype=torch.float32, device=dev),
+            t_valid=xkv.t_valid)
     kf = xkv.k.float().reshape(l, b, t, n_head, d)
     vf = xkv.v.float().reshape(l, b, t, n_head, d)
     k_s = kf.abs().amax(dim=-1) * (1.0 / 127.0)                # (L, B, T, H)
-    k_q = torch.clamp(torch.round(kf / torch.clamp_min(k_s[..., None], 1e-9)),
-                      -127, 127).to(torch.int8).reshape(l, b, t, s)
+    out.k_q.view(l, b, t, n_head, d).copy_(torch.clamp(torch.round(
+        kf / torch.clamp_min(k_s[..., None], 1e-9)), -127, 127))
     v_s = vf.abs().amax(dim=(2, 4)) * (1.0 / 127.0)            # (L, B, H)
-    v_q = torch.clamp(torch.round(
-        vf / torch.clamp_min(v_s[:, :, None, :, None], 1e-9)),
-        -127, 127).to(torch.int8).reshape(l, b, t, s)
-    k_s = Fn.pad(k_s, (0, H_PAD - n_head)).to(torch.bfloat16)
-    v_s = Fn.pad(v_s, (0, H_PAD - n_head))
-    return QuantCrossKV(k_q=k_q, k_s=k_s.contiguous(), v_q=v_q,
-                        v_s=v_s.contiguous(), t_valid=xkv.t_valid)
+    out.v_q.view(l, b, t, n_head, d).copy_(torch.clamp(torch.round(
+        vf / torch.clamp_min(v_s[:, :, None, :, None], 1e-9)), -127, 127))
+    out.k_s[..., :n_head].copy_(k_s)
+    out.v_s[..., :n_head].copy_(v_s)
+    return out._replace(t_valid=xkv.t_valid)
 
 
 def cross_kv(params: Params, config: WhisperConfig,
-             enc_out: torch.Tensor, tp=None) -> CrossKV:
+             enc_out: torch.Tensor, tp=None,
+             out: Optional[CrossKV] = None) -> CrossKV:
     """Project the encoder output to every decoder layer's cross K/V (this
     rank's heads under ``tp``), padded on T to the decode-attention block
-    size."""
+    size, one layer's projection at a time into ``out``: a CrossKV of the
+    result's shape whose padding is 0 (the token loop's CUDA graph reads
+    it), or None for a new one.  Where autograd records the projections,
+    a new result is stacked and padded instead: the backward of a write
+    into one tensor a layer would copy the whole gradient once a layer."""
     ca = params["decoder"]["blocks"]["cross_attn"]
     enc_out = copy_to_tp(enc_out, tp)
-    ks, vs = [], []
-    for li in range(config.n_text_layer):
-        ks.append(_proj(enc_out, qlayer(ca["wk"], li)))
-        vs.append(_proj(enc_out, qlayer(ca["wv"], li), ca["bv"][li]))
-    k, v = torch.stack(ks), torch.stack(vs)
-    t = k.shape[2]
-    t_pad = round_cache_len(t)
-    if t_pad != t:
-        k = Fn.pad(k, (0, 0, 0, t_pad - t))
-        v = Fn.pad(v, (0, 0, 0, t_pad - t))
-    return CrossKV(k=k.contiguous(), v=v.contiguous(), t_valid=t)
+    t, n_layer = enc_out.shape[1], config.n_text_layer
+
+    def project(li):
+        return (_proj(enc_out, qlayer(ca["wk"], li)),
+                _proj(enc_out, qlayer(ca["wv"], li), ca["bv"][li]))
+
+    k, v = project(0)
+    if out is None and (k.requires_grad or v.requires_grad):
+        kvs = [(k, v)] + [project(li) for li in range(1, n_layer)]
+        pad = (0, 0, 0, round_cache_len(t) - t)
+        return CrossKV(k=Fn.pad(torch.stack([a for a, _ in kvs]), pad),
+                       v=Fn.pad(torch.stack([b for _, b in kvs]), pad),
+                       t_valid=t)
+    if out is None:
+        shape = (n_layer, k.shape[0], round_cache_len(t), k.shape[2])
+        out = CrossKV(k=k.new_zeros(shape), v=v.new_zeros(shape), t_valid=t)
+    for li in range(n_layer):
+        if li:
+            k, v = project(li)
+        out.k[li, :, :t] = k
+        out.v[li, :, :t] = v
+    return out._replace(t_valid=t)
 
 
 # ================================================================== decoder ==
@@ -390,13 +416,22 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(config: WhisperConfig, batch: int,
                   cache_len: Optional[int] = None, dtype=torch.bfloat16,
-                  *, device, tp=None) -> KVCache:
+                  *, device, tp=None, out: Optional[KVCache] = None
+                  ) -> KVCache:
     """Fresh zero cache, capacity rounded up to the kernel block; width
-    n_text_state / tp (this rank's heads)."""
+    n_text_state / tp (this rank's heads).  ``out``: a cache of that shape
+    and dtype, zeroed in place instead."""
     c = round_cache_len(cache_len if cache_len is not None
                         else config.n_text_ctx)
     shape = (config.n_text_layer, batch, c,
              config.n_text_state // tp_size(tp))
+    if out is not None:
+        if tuple(out.k.shape) != shape or out.k.dtype != dtype:
+            raise ValueError(f"init_kv_cache: out is {tuple(out.k.shape)} "
+                             f"{out.k.dtype}, the cache {shape} {dtype}")
+        out.k.zero_()
+        out.v.zero_()
+        return out
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -522,7 +557,7 @@ def decoder_dense(params: Params, config: WhisperConfig,
 
 def decoder_step(params: Params, config: WhisperConfig,
                  token: torch.Tensor, pos: torch.Tensor, kv: KVCache,
-                 xkv, lo: torch.Tensor, slot: int, split: int,
+                 xkv, lo: torch.Tensor, slot, split: int,
                  kv_group: int = 1, kv_prompt: Optional[KVCache] = None,
                  rowmap: Optional[torch.Tensor] = None, tp=None
                  ) -> Tuple[torch.Tensor, KVCache]:
@@ -544,6 +579,12 @@ def decoder_step(params: Params, config: WhisperConfig,
     live slot t from row ``rowmap[b, t]`` of its group (``rowmap[:, slot]``
     must be each beam's own row).
 
+    ``slot`` is a host int, or a (1,) int32 tensor on the device (not in
+    split-cache mode): the new K/V row is then written by ``index_copy_``
+    and the attention kernel reads hi = slot + 1 on the device, so the
+    step holds no host value that changes from step to step and one CUDA
+    graph replays every step of a window (``decode/window.py``).
+
     Writes the new K/V into ``kv`` in place and returns (logits (B, V) f32,
     kv)."""
     dec = params["decoder"]
@@ -554,6 +595,14 @@ def decoder_step(params: Params, config: WhisperConfig,
     cross_lo = torch.full((B,), xkv.t_valid, dtype=torch.int32,
                           device=token.device)
     beam_group = B // kv_prompt.k.shape[1] if kv_prompt is not None else 1
+    on_device = isinstance(slot, torch.Tensor)
+    if on_device and kv_prompt is not None:
+        raise ValueError("decoder_step: the split-cache beam step takes a "
+                         "host int slot")
+    if on_device:
+        at, hi = slot.long(), slot + 1
+    else:
+        hi = slot + 1
 
     x = _embed(dec, token, pos, cdtype, tp)                    # (B, S)
     for li in range(config.n_text_layer):
@@ -561,15 +610,19 @@ def decoder_step(params: Params, config: WhisperConfig,
         ln0, attn = layer["attn_ln"], layer["attn"]
         h = copy_to_tp(layer_norm(x, ln0["g"], ln0["b"]).to(cdtype), tp)
         q, k_new, v_new = _self_qkv(h, attn)
-        kv.k[li, :, slot] = k_new.to(kv.k.dtype)
-        kv.v[li, :, slot] = v_new.to(kv.v.dtype)
+        if on_device:
+            kv.k[li].index_copy_(1, at, k_new.to(kv.k.dtype)[:, None])
+            kv.v[li].index_copy_(1, at, v_new.to(kv.v.dtype)[:, None])
+        else:
+            kv.k[li, :, slot] = k_new.to(kv.k.dtype)
+            kv.v[li, :, slot] = v_new.to(kv.v.dtype)
         if kv_prompt is not None:
             o = split_beam_attention(q, kv_prompt.k, kv_prompt.v, kv.k, kv.v,
-                                     lo, slot + 1, n_head=n_head,
+                                     lo, hi, n_head=n_head,
                                      kv_group=beam_group, layer=li,
                                      rowmap=rowmap)
         else:
-            o = decode_attention(q, kv.k, kv.v, lo, slot + 1, split=split,
+            o = decode_attention(q, kv.k, kv.v, lo, hi, split=split,
                                  n_head=n_head, layer=li)
         x, xs = _residual(x, _row_proj(o.to(cdtype), attn["wo"], attn["bo"],
                                        cdtype, tp))

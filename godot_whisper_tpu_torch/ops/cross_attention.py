@@ -211,7 +211,7 @@ def xattn_q_wide(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
              k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), lo.data_ptr(),
              out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
              n_head, kv_group, sl * nc, float((s // n_head) ** -0.5))
-    xattn_q_wide.launches += 1
+    K.count(xattn_q_wide)
     return out
 
 
@@ -232,8 +232,8 @@ def xattn_q_packed(q, k_q, k_s, v_q, v_s, lo, *, n_head: int, kv_group: int,
              out.data_ptr(), int(layer), k_q.shape[1], k_q.shape[2], s,
              n_head, kv_group, sl * nc, int(w8a8),
              float((s // n_head) ** -0.5))
-    xattn_q_packed.launches += 1
-    xattn_q_packed.mode_launches["w8a8" if w8a8 else "exact"] += 1
+    K.count(xattn_q_packed,
+            (xattn_q_packed.mode_launches, "w8a8" if w8a8 else "exact"))
     return out
 
 

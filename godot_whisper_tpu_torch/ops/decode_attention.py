@@ -13,6 +13,10 @@ Slot c of row b is valid iff ``c < lo[b]`` or ``split <= c < hi``:
   capacity, hi = split + step + 1;
 - cross-attention: lo = valid audio positions, split = C, hi = 0.
 
+``hi`` is a host int, or a (1,) int32 tensor on q's device that the kernel
+reads there (the token loop's CUDA graph replays one step with the step's
+slot written on the device, ``decode/window.py``).
+
 The caches enter as the full stacked ``(L, B // kv_group, C, S)`` tensors
 with ``layer`` selecting the layer: the kernel reads it by pointer offset,
 so no per-layer copy is ever made.
@@ -68,10 +72,10 @@ def slice_live(a: int, b: int, lo_max: int, split: int, hi: int) -> bool:
     return a < b and (a < lo_max or max(a, split) < min(b, hi))
 
 
-def decode_attention_plain(q, k, v, lo, hi: int, *, split: int, n_head: int,
+def decode_attention_plain(q, k, v, lo, hi, *, split: int, n_head: int,
                            kv_group: int = 1, layer: int = 0):
     """The JAX package's ``_fallback``: heads split out, f32 masked
-    softmax.  Returns (B, S) f32."""
+    softmax (``hi`` an int or a (1,) tensor).  Returns (B, S) f32."""
     k, v = k[layer], v[layer]
     b, s = q.shape
     c = k.shape[1]
@@ -132,7 +136,7 @@ def merge_partials(parts):
     return acc_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
 
 
-def decode_attention_split_plain(q, k, v, lo, hi: int, *, split: int,
+def decode_attention_split_plain(q, k, v, lo, hi, *, split: int,
                                  n_head: int, kv_group: int = 1,
                                  layer: int = 0, n_sms: int = H100_SMS):
     """The kernel's slicing and ordered merge in torch: the same function as
@@ -140,6 +144,7 @@ def decode_attention_split_plain(q, k, v, lo, hi: int, *, split: int,
     ``split_plan``'s length and merged in split order; slices without a
     slot any row of the group may attend are skipped, as the kernel never
     loads them.  For the CPU tests only.  Returns (B, S) f32."""
+    hi = int(hi)
     k, v = k[layer], v[layer]
     b, s = q.shape
     g, c = k.shape[0], k.shape[1]
@@ -169,10 +174,11 @@ def decode_attention_split_plain(q, k, v, lo, hi: int, *, split: int,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lo: torch.Tensor, hi: int, *, split: int, n_head: int,
+                     lo: torch.Tensor, hi, *, split: int, n_head: int,
                      kv_group: int = 1, layer: int = 0) -> torch.Tensor:
     """Kernel wrapper.  q (B, S); k/v (L, B // kv_group, C, S); lo (B,)
-    int32; hi, split, layer host ints.
+    int32; hi a host int or a (1,) int32 tensor on q's device; split,
+    layer host ints.
     CUDA tensors launch csrc/decode_attn.cu, CPU tensors take the plain
     version.  Returns (B, S) f32."""
     if q.device.type == "cpu":
@@ -194,6 +200,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "S) of q's dtype (f32/bf16) on 16-byte boundaries "
                          "with 16-byte rows, head dim 32|64, kv_group <= 8, "
                          "lo (B,) int32")
+    hi_ptr = 0
+    if isinstance(hi, torch.Tensor):
+        if (hi.device != q.device or hi.dtype != torch.int32
+                or tuple(hi.shape) != (1,)):
+            raise ValueError("decode_attention: a tensor hi is (1,) int32 "
+                             "on q's device")
+        hi, hi_ptr = 0, hi.data_ptr()
     d = s // n_head
     sl, (n_split,) = split_plan(((c, 1),), g * n_head, K.sm_count(
         q.device.index))
@@ -203,16 +216,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dtype=torch.float32, device=q.device)
     out = buf[:b * s].view(b, s)
     fn = K.entry("decode_attn", "gwt_decode_attn",
-                 (K.P,) * 7 + (K.I,) * 8 + (K.F, K.I, K.I, K.I, K.P))
+                 (K.P,) * 7 + (K.I,) * 8 + (K.P, K.F, K.I, K.I, K.I, K.P))
     K.launch(fn, "gwt_decode_attn", q.device,
              q.data_ptr(), k.data_ptr(), v.data_ptr(),
              lo.data_ptr(), out.data_ptr(), buf[b * s:].data_ptr(),
              K.tickets(q.device, g * n_head).data_ptr(), int(layer), g, c, s,
-             n_head, kv_group, int(split), int(hi), float(d ** -0.5), sl,
-             n_split, _DTYPES[q.dtype])
-    decode_attention.launches += 1
-    decode_attention.group_launches[kv_group] += 1
-    decode_attention.rows_launches[(kv_group, b)] += 1
+             n_head, kv_group, int(split), int(hi), hi_ptr, float(d ** -0.5),
+             sl, n_split, _DTYPES[q.dtype])
+    K.count(decode_attention, (decode_attention.group_launches, kv_group),
+            (decode_attention.rows_launches, (kv_group, b)))
     return out
 
 

@@ -15,6 +15,7 @@ port on machines without ``nvcc`` or a card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -140,6 +141,52 @@ def launch(fn, what: str, device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+_CAPTURE = threading.local()
+
+
+def count(wrapper, *keyed) -> None:
+    """One launch of the kernel wrapper ``wrapper``: ``wrapper.launches``
+    and each (Counter, key) of ``keyed`` go up by one.  While this thread
+    captures a CUDA graph (``CapturedLaunches``) nothing launches: the
+    launch is kept for the graph, which counts it at each replay."""
+    calls = getattr(_CAPTURE, "calls", None)
+    if calls is not None:
+        calls.append((wrapper, keyed))
+        return
+    wrapper.launches += 1
+    for counter, key in keyed:
+        counter[key] += 1
+
+
+class CapturedLaunches:
+    """The launches ``count`` sees in a ``with`` block that captures a CUDA
+    graph, kept instead of counted; ``add()`` counts them once, at each
+    replay of the graph, so the wrappers' counters read the launches the
+    card ran.  The wrappers a decoder step launches count through
+    ``count``: ``decode_attention``, ``quant_matmul``, ``quant_matmul4``,
+    ``xattn_q_packed``, ``xattn_q_wide``."""
+
+    def __enter__(self) -> "CapturedLaunches":
+        _CAPTURE.calls = self._calls = []
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _CAPTURE.calls = None
+        self.wrappers = collections.Counter(w for w, _ in self._calls)
+        keyed: Dict[int, tuple] = {}
+        for _, pairs in self._calls:
+            for counter, key in pairs:
+                keyed.setdefault(id(counter), (counter, collections.Counter())
+                                 )[1][key] += 1
+        self.keyed = list(keyed.values())
+
+    def add(self) -> None:
+        for wrapper, n in self.wrappers.items():
+            wrapper.launches += n
+        for counter, delta in self.keyed:
+            counter.update(delta)
 
 
 def require_cuda(what: str, *tensors) -> None:

@@ -282,9 +282,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantTensor, *,
                        if route == "io_rows" else (0, 0))
         _launch(f"gwt_qmatmul[int8 {route}]", 1 if oi else 0, x2, qt, out,
                 0, sl, n_split)
-        quant_matmul.launches += 1
-        quant_matmul.layout_launches[layout] += 1
-        quant_matmul.route_launches[route] += 1
+        K.count(quant_matmul, (quant_matmul.layout_launches, layout),
+                (quant_matmul.route_launches, route))
     return out.reshape(*x.shape[:-1], O)
 
 
@@ -311,8 +310,7 @@ def quant_matmul4(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
             x.device.index)) if route == "rows" else (0, 0))
         _launch(f"gwt_qmatmul[int4 {route}]", 2, x2, qt, out, group, sl,
                 n_split)
-        quant_matmul4.launches += 1
-        quant_matmul4.route_launches[route] += 1
+        K.count(quant_matmul4, (quant_matmul4.route_launches, route))
     return out.reshape(*x.shape[:-1], O)
 
 

@@ -1295,3 +1295,172 @@ def test_tp2_decoder_step_on_card_over_gloo(cuda, tmp_path):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["tp2-step"]:
     _tp2_step_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+
+
+# ------------------------------------- the token loop as one CUDA graph --
+@pytest.mark.parametrize("kv_group", [1, 5])
+@pytest.mark.parametrize("hi", [1, 64, 65, 256])
+def test_decode_attention_hi_on_the_device_equals_host_int(cuda, hi,
+                                                           kv_group):
+    """K3 / K4 with ``hi`` a (1,) int32 tensor read on the device equal the
+    launch with hi as an int, bit for bit, at turbo width (20 heads of 64,
+    bf16) from one live slot to the whole capacity."""
+    gen = torch.Generator().manual_seed(hi)
+    b, s, c = 40, 1280, 256
+    q = torch.randn(b, s, generator=gen).to(cuda, torch.bfloat16)
+    k = torch.randn(4, b // kv_group, c, s, generator=gen).to(cuda,
+                                                             torch.bfloat16)
+    v = torch.randn(4, b // kv_group, c, s, generator=gen).to(cuda,
+                                                             torch.bfloat16)
+    lo = torch.zeros(b, dtype=torch.int32, device=cuda)
+    kw = dict(split=0, n_head=20, kv_group=kv_group, layer=2)
+    want = D.decode_attention(q, k, v, lo, hi, **kw)
+    got = D.decode_attention(
+        q, k, v, lo, torch.tensor([hi], dtype=torch.int32, device=cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = D.decode_attention_plain(q, k, v, lo, hi, **kw)
+    assert float((got - plain).abs().max()) < 1e-4
+
+
+def _serving_decoder(cfg, params, seed):
+    """The benchmark's serving weights: end-of-text's embedding row scaled
+    by 1e-3 (it never wins, so every window runs to ``max_tokens``) and
+    the decoder's positional embedding N(0, 1) (every step decides anew)."""
+    dec = params["decoder"]
+    dec["token_embed"][cfg.token_eot] *= 1e-3
+    dec["pos_embed"].copy_(torch.randn(
+        dec["pos_embed"].shape, generator=torch.Generator().manual_seed(
+            seed)).to(dec["pos_embed"].device))
+
+
+@pytest.fixture(scope="module")
+def turbo():
+    """large-v3-turbo's decoder at its published widths (one encoder layer:
+    the loop reads a cross-KV made from random encoder output), seeded
+    bf16 serving weights; contexts in bf16 and with an int8 decoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = get_config("large-v3-turbo").replace(n_audio_layer=1)
+    params = gt.init_params(cfg, seed=5, compute_dtype=torch.bfloat16,
+                            device="cuda")
+    _serving_decoder(cfg, params, 5)
+    return cfg, {q: gt.WhisperContext.from_params(cfg, params,
+                                                  device="cuda", quantize=q)
+                 for q in (None, "int8")}
+
+
+@pytest.mark.parametrize("route", ["greedy", "sampling", "int8_decoder",
+                                   "int8_cross"])
+def test_token_loop_graph_replays_the_eager_loop(cuda, turbo, route):
+    """``run_decode_loop`` at B 32 replaying one captured step equals the
+    same loop run eagerly, every WindowResult field bit for bit, over 61
+    steps, in two windows (the first captures, the second only replays):
+    greedy, t = 0.4 sampling at kv_group 4 (K4), an int8 decoder (K9),
+    int8 cross-KV (K12).  The kernel wrappers' counters read the eager
+    loop's launches in both windows."""
+    from godot_whisper_tpu_torch.decode.window import (
+        StepGraphs, WindowResult, WindowStatics, prompt_pass_grouped,
+        run_decode_loop)
+    from godot_whisper_tpu_torch.ops.cross_attention import xattn_q_packed
+    from godot_whisper_tpu_torch.ops.qmatmul import quant_matmul
+    cfg, ctxs = turbo
+    pipe = ctxs["int8" if route == "int8_decoder" else None].pipeline
+    params = pipe.params
+    fctx = build_filter_context(cfg, pipe.tokenizer, device=cuda)
+    B, kv_group = 32, 4 if route == "sampling" else 1
+    G = B // kv_group
+    temp = 0.4 if route == "sampling" else 0.0
+    gen = torch.Generator().manual_seed(21)
+    graphs = StepGraphs()
+    xkv = graphs.cross_kv(params, cfg, torch.randn(
+        G, 1500, cfg.n_audio_state, generator=gen).to(cuda, torch.bfloat16),
+        route == "int8_cross")
+    wrappers = (D.decode_attention, quant_matmul, xattn_q_packed)
+
+    def launches():
+        torch.cuda.synchronize()
+        return ([w.launches for w in wrappers],
+                dict(D.decode_attention.rows_launches),
+                dict(quant_matmul.route_launches))
+
+    def since(a, b):
+        return ([y - x for x, y in zip(a[0], b[0])],
+                *({k: v - x.get(k, 0) for k, v in y.items()}
+                  for x, y in zip(a[1:], b[1:])))
+    rng = np.random.default_rng(3)
+    n_prompt = rng.integers(1, 9, G).astype(np.int32)
+    prompt = np.where(np.arange(8)[None] < n_prompt[:, None],
+                      rng.integers(0, cfg.token_eot, (G, 8)), 0)
+    prompt = torch.from_numpy(prompt.astype(np.int32)).to(cuda)
+    st = WindowStatics(
+        config=cfg, batch=B, n_max=cfg.n_text_ctx // 2 - 4, prompt_pad=8,
+        greedy_argmax=temp == 0.0, suppress_blank=True, no_timestamps=True,
+        single_segment=False, max_tokens=60, test_mode=False,
+        kv_group=kv_group)
+
+    def run(graph):
+        last, kv = prompt_pass_grouped(
+            params, cfg, prompt, n_prompt, xkv, kv_group, n_max=st.n_max,
+            out=None if graph is None else graph.kv)
+        return run_decode_loop(params, cfg, fctx, st, xkv, kv, last,
+                               np.repeat(n_prompt, kv_group), temp, 0, 3000,
+                               7, graph=graph)
+
+    n0 = launches()
+    want = run(None)
+    eager = since(n0, launches())
+    assert want.n_steps == 61 and want.graph_steps == 0
+    assert min(eager[0][:2 if route == "int8_decoder" else 1]) > 0
+    for window in range(2):
+        graph = graphs.get(params, st, xkv)
+        assert graph is not None
+        assert (graph.graph is None) == (window == 0)
+        n0 = launches()
+        got = run(graph)
+        counted = since(n0, launches())
+        if window:
+            assert counted == eager
+        else:    # and the capture's eager step
+            assert counted[0] == [n + graph._launches.wrappers[w]
+                                  for n, w in zip(eager[0], wrappers)]
+        assert got.graph_steps == got.n_steps == want.n_steps
+        for f in WindowResult._fields:
+            if f != "graph_steps":
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f), err_msg=f)
+
+
+def test_two_contexts_get_their_own_graphs(cuda):
+    """Two tiny.en contexts with different weights in one process: each
+    captures its own step (no StepGraph shared), they decode different
+    tokens, and the first decodes as before after the second ran."""
+    from godot_whisper_tpu_torch.runtime.trace import tracer
+    ctxs = [gt.WhisperContext.synthetic("tiny.en", seed=s, device="cuda")
+            for s in (0, 1)]
+    for s, c in enumerate(ctxs):
+        _serving_decoder(c.config, c.pipeline.params, s)
+    p = gt.TranscribeParams(no_timestamps=True, temperature_inc=0.0,
+                            best_of=1, entropy_thold=0.0,
+                            logprob_thold=-1e6, max_tokens=20)
+    audio = _tone(6.0)
+
+    def ids(ctx):
+        return [t.id for s in ctx.full(p, audio) for t in s.tokens]
+    was = tracer.enabled
+    tracer.enable()
+    tracer.clear()
+    try:
+        first = [ids(c) for c in ctxs]
+        again = ids(ctxs[0])
+        loops = [r for r in tracer.records() if r.name == "gwt.token_loop"]
+    finally:
+        tracer.enabled = was
+        tracer.clear()
+    assert first[0] and first[1] and first[0] != first[1]
+    assert again == first[0]
+    assert loops and all(r.counts["graph_steps"] == r.counts["steps"]
+                         for r in loops)
+    held = [c.pipeline._step_graphs._graph for c in ctxs]
+    assert all(g is not None and g.graph is not None for g in held)
+    assert held[0] is not held[1] and held[0].xkv[0] is not held[1].xkv[0]

@@ -37,7 +37,8 @@ PARENT = {"gwt.batch": None, "gwt.mel": "gwt.batch",
 COUNTS = {"gwt.batch": {"clips"}, "gwt.mel": {"clips"},
           "gwt.clip": {"streams"}, "gwt.encode": {"rows"},
           "gwt.cross_kv": {"rows"}, "gwt.prompt": {"rung", "rows"},
-          "gwt.token_loop": {"rung", "steps"}, "gwt.emit": {"windows"}}
+          "gwt.token_loop": {"rung", "steps", "graph_steps"},
+          "gwt.emit": {"windows"}}
 
 
 @pytest.fixture(autouse=True)
@@ -106,6 +107,7 @@ def test_profiled_batch_opens_every_span_as_a_range(batch):
     loops = [r for r in recs if r.name == "gwt.token_loop"]
     assert sum(r.counts["steps"] for r in loops) == \
         ctx.timings.n_decode - n0 == PARAMS["max_tokens"] + 1
+    assert all(r.counts["graph_steps"] == 0 for r in loops)   # CPU: eager
     steps = sum(r.name == "gwt.step.sample" for r in recs)
     assert steps == PARAMS["max_tokens"] + 1
     assert sum(r.name == "gwt.step.forward" for r in recs) == steps - 1
