@@ -2,6 +2,7 @@
 """Chip smoke test of godot_whisper_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase17     # phases 1 and 17 alone
 
 Phases (any failure exits non-zero; no phase carries on past its own):
 
@@ -175,6 +176,15 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    speed-ups: the ranks share one card and gloo stages every all-reduce
    through the host.  NCCL across ranks is not run (NCCL refuses two
    ranks on one device).
+17. Uni-MoE-2.0-Omni -- (a) K14 (grouped-query decode attention) against
+   its plain version at the cell's step shapes (B 32, 7 query heads a K/V
+   head of 128, capacity 512, hi 217 and 316), bitwise repeatable, hi on
+   the device equal to a host int; (b) K5 at 152064 ids on the edge rows;
+   both timed as cli.bench times a kernel; (c) BatchTranscriber over 32
+   clips of 20 s through a UniMoEContext at the published widths (random
+   weights drawn on the card), counters zeroed just before the second
+   batch: 101 tokens a row, K1 once, K2, K14 28 times a forward step, K5
+   once a step, K3 / K4 never.  Their two rows join the kernels line.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -1845,7 +1855,8 @@ def launch_counters(torch):
                                                        flash_attention_long)
     from godot_whisper_tpu_torch.ops.cross_attention import (xattn_q_packed,
                                                              xattn_q_wide)
-    from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
+    from godot_whisper_tpu_torch.ops.decode_attention import (
+        decode_attention, gqa_decode_attention)
     from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
                                                            fused_filter_topk)
     from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
@@ -1857,7 +1868,7 @@ def launch_counters(torch):
     counters = (log_mel_raw, flash_attention_bh, decode_attention,
                 fused_filter_sample, fused_filter_topk, split_beam_attention,
                 reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
-                xattn_q_packed, flash_attention_long)
+                xattn_q_packed, flash_attention_long, gqa_decode_attention)
 
     def zero(c):
         for fn in counters:
@@ -2800,8 +2811,211 @@ def check_multi_device(torch, gt, tmp):
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -------------------------------------------------------------- phase 17 --
+# Uni-MoE-2.0-Omni's speech path at its published widths
+UNIMOE_HEAD = (151644, 872, 198, 3158, 279, 7699, 13, 198)
+UNIMOE_TAIL = (151645, 198, 151644, 77091, 198, 3158, 25, 220)
+
+
+def unimoe_config(gt):
+    """The published widths: the Whisper-large-v3 encoder (its text
+    fields unused), 28 LM layers at 3584, GQA 28 over 4 heads of 128, 2
+    shared experts of 2368, 4 routed of 18944 and 1 null under top-p 0.7
+    capped at 2, 152064 ids."""
+    from godot_whisper_tpu_torch.models.unimoe import UniMoEConfig
+    return UniMoEConfig(
+        name="uni-moe-2.0-omni", n_vocab=152064, n_state=3584, n_layer=28,
+        n_head=28, n_kv_head=4, head_dim=128, n_shared=2, shared_ffn=2368,
+        n_routed=4, n_null=1, routed_ffn=18944, top_p=0.7, top_k=2,
+        audio=gt.get_config("large-v3").replace(n_text_layer=1))
+
+
+def unimoe_params_on_card(torch, gt, cfg, seed: int = 0):
+    """Random weights drawn on the card (53.6 GB in bf16 at the published
+    widths, more than the host's generator draws in a phase): the LM's
+    leaves N(0, 0.02^2) from a CUDA generator, norm gains 1 + that, the
+    encoder from ``init_params``; end-of-text's head column scaled by
+    1e-3, so every row decodes ``max_tokens`` + 1 tokens."""
+    from godot_whisper_tpu_torch.models import unimoe as U
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree = {"encoder": gt.init_params(cfg.audio, seed=seed,
+                                      device=dev)["encoder"]}
+    with torch.no_grad():
+        for path, shape in U.param_shapes(cfg).items():
+            f32 = path[-1] in U.F32_LEAVES
+            t = torch.empty(shape, device=dev, dtype=torch.float32 if f32
+                            else torch.bfloat16).normal_(0.0, 0.02,
+                                                         generator=gen)
+            if path[-1] in ("attn_norm", "mlp_norm", "norm"):
+                t.add_(1.0)
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        tree["head"][:, cfg.token_eot].mul_(1e-3)
+    return tree
+
+
+def check_unimoe(torch, gt, rng, zero, read, ptx_logs) -> list:
+    """(a) K14 (``gqa_decode_attention``) against its plain version at the
+    cell's step shapes: B 32, 4 K/V heads of 128 read by 7 query heads
+    each, capacity 512, hi 217 and 316 (a window's first and last step);
+    the slot bound on the device equal to a host int and two calls
+    bitwise equal; tolerance 2e-5 (f32 sums in another order over bf16
+    inputs).  (b) K5 at the LM's 152064 ids (the 38-id instantiation) on
+    ``filter_edge_case``'s rows at B 32 against its plain version:
+    tokens equal, p / plog within 1e-5.  Both timed as cli.bench times a
+    kernel (event ms, device ms of 10 calls in a CUDA graph, the plain
+    version's event ms), K14 at hi 266 (about the mean of a window's
+    steps), K5 at t 0.  (c) the main path: ``BatchTranscriber.transcribe``
+    of 32 clips of 20 s through a ``UniMoEContext`` at the published
+    widths (random weights on the card, greedy, no timestamps,
+    max_tokens 100), one batch to capture, then one with every counter
+    zeroed just before: 101 tokens a row; K1 once, K2, K14 28 times a
+    forward step (100), K5 once a sampled step (101), and Whisper's decode
+    attention (K3 / K4) never.  Returns the two kernels' rows of the
+    kernels line."""
+    from godot_whisper_tpu_torch.audio.mel import mel_filterbank
+    from godot_whisper_tpu_torch.cli import bench
+    from godot_whisper_tpu_torch.decode.omni import UniMoEContext
+    from godot_whisper_tpu_torch.ops import decode_attention as D
+    from godot_whisper_tpu_torch.ops import filter_sample as FS
+    from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    log_ptxas(ptx_logs, "decode_attn", "gqa_decode_kernel", dynamic=False)
+    log_ptxas(ptx_logs, "filter_sample", "filter_sample_kernel",
+              dynamic=False)
+
+    # (a) K14 at the cell's shapes
+    B, Hk, G, Dh, C = 32, 4, 7, 128, 512
+    H = Hk * G
+
+    def tens(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    q, k, v = tens(B, H * Dh), tens(2, B, C, Hk * Dh), tens(2, B, C, Hk * Dh)
+    kw = dict(n_head=H, n_kv_head=Hk, layer=1)
+    e14 = 0.0
+    for hi in (217, 316):
+        got = D.gqa_decode_attention(q, k, v, hi, **kw)
+        again = D.gqa_decode_attention(q, k, v, hi, **kw)
+        on_dev = D.gqa_decode_attention(q, k, v, torch.tensor(
+            [hi], dtype=torch.int32, device=dev), **kw)
+        torch.cuda.synchronize()
+        want = D.gqa_decode_attention_plain(q, k, v, hi, **kw)
+        e = float((got - want).abs().max())
+        same, dev_same = bool(torch.equal(got, again)), bool(
+            torch.equal(got, on_dev))
+        log(f"K14 gqa_decode_attn [B {B}, {H} heads over {Hk} K/V heads of "
+            f"{Dh}, C {C}, hi {hi}]: max_abs_err {e:.3e} (tol 2e-5: f32 "
+            f"sums in another order over bf16 inputs); two calls bitwise "
+            f"equal {same}; hi on the device equal {dev_same}")
+        if not (e < 2e-5 and same and dev_same):
+            fail("K14 disagrees with its plain version at the cell's "
+                 "shapes")
+        e14 = max(e14, e)
+    hi = 266
+    hi_t = torch.tensor([hi], dtype=torch.int32, device=dev)
+    c14 = bench.KernelCase(
+        "gqa_decode", f"K14 gqa_decode_attention (B {B}, {H}/{Hk} heads, "
+        f"C {C}, hi {hi} on the device)",
+        lambda: D.gqa_decode_attention(q, k, v, hi_t, **kw),
+        lambda: D.gqa_decode_attention_plain(q, k, v, hi, **kw), None,
+        2 * B * hi * Hk * Dh * 2 + B * H * Dh * 2 + B * H * Dh * 4, 0.0,
+        "bf16", f32_ops=4 * B * H * hi * Dh)
+    t14 = bench.time_case(c14)
+    log(f"K14 times: {json.dumps(t14)}")
+
+    # (b) K5 at 152064 ids
+    V = 152064
+    r5 = filter_edge_errors(torch, FS, rng, V, B)
+    log(f"K5 fused_filter_sample [B {B}, V {V}] vs plain: {r5}")
+    if not (r5["mismatch"] == 0 and r5["err"] < 1e-5 and r5["repeat"]
+            and r5["twins"]):
+        fail("K5 at the LM's vocabulary disagrees with its plain version")
+    logits = torch.from_numpy((rng.standard_normal((B, V)) * 3.0).astype(
+        np.float32)).to(dev)
+    sup = torch.zeros(V, dtype=torch.bool, device=dev)
+    state = torch.tensor([[0, -1, -1, 0, 0, 0, 1]] * B, dtype=torch.int32,
+                         device=dev)
+    fkw = dict(temperature=0.0, seed=0, eot=151645, beg=V, space_id=-1,
+               max_initial_tid=0, suppress_blank=False, no_timestamps=True)
+    c5 = bench.KernelCase(
+        "filter_sample_wide", f"K5 fused_filter_sample ({B}, {V})",
+        lambda: FS.fused_filter_sample(logits, sup, state, **fkw),
+        lambda: FS.fused_filter_sample_plain(logits, sup, state, **fkw),
+        None, B * V * 4 + V + state.numel() * 4 + B * 6 * 4, B * V * 30,
+        "f32")
+    t5 = bench.time_case(c5)
+    log(f"K5 [{V}] times: {json.dumps(t5)}")
+    del q, k, v, logits
+
+    # (c) the main path at the published widths
+    torch.cuda.empty_cache()
+    cfg = unimoe_config(gt)
+    t0 = time.perf_counter()
+    params = unimoe_params_on_card(torch, gt, cfg)
+    torch.cuda.synchronize()
+    log(f"Uni-MoE-2.0-Omni weights drawn on the card: "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ctx = UniMoEContext(cfg, params, device=dev,
+                        mel_filters=mel_filterbank(cfg.audio.n_mels),
+                        prompt_head=UNIMOE_HEAD, prompt_tail=UNIMOE_TAIL)
+    bt = BatchTranscriber(ctx)
+    tp = gt.TranscribeParams(max_tokens=100, no_timestamps=True,
+                             temperature=0.0, temperature_inc=0.0,
+                             best_of=1)
+    pool = frozen_audio(32 * 20 + 20)
+    n = 20 * 16000
+    bt.transcribe([pool[(j + 1) * n:(j + 2) * n] for j in range(32)], tp)
+    clips = [pool[j * n:(j + 1) * n] for j in range(32)]
+    zero(ctx)
+    t0 = time.perf_counter()
+    segs = bt.transcribe(clips, tp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, grp = read()
+    steps = ctx.timings.n_decode
+    toks = [len(sg.tokens) for segs_c in segs for sg in segs_c]
+    log(f"Uni-MoE main path: 32 clips of 20 s, wall {wall:.3f} s, "
+        f"{32 * 20 / wall:.2f} audio-s/s, {steps} sampled steps, tokens a "
+        f"row {min(toks)}-{max(toks)}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; {card_line()}")
+    log(f"Uni-MoE main path launches: {got}, decode_attention by kv_group "
+        f"{grp}")
+    if not (len(toks) == 32 and min(toks) == max(toks) == 101
+            and steps == 101 and got["log_mel_raw"] == 1
+            and got["flash_attention_bh"]
+            and got["gqa_decode_attention"] == cfg.n_layer * (steps - 1)
+            and got["fused_filter_sample"] == steps
+            and not got["decode_attention"]):
+        fail("the Uni-MoE main path did not run 101 tokens a row through "
+             "K1, K2, K14 (28 a forward step) and K5 (one a step)")
+    del bt, ctx, params
+    torch.cuda.empty_cache()
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    rows = []
+    for t, (name, source, replaces, launches, err) in (
+            (t14, ("gqa_decode_attention", "decode_attn.cu", None,
+                   got["gqa_decode_attention"], e14)),
+            (t5, ("fused_filter_sample[V 152064]", "filter_sample.cu",
+                  TPU_OPS + "filter_sample.py:113",
+                  got["fused_filter_sample"], r5["err"]))):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "godot_whisper_tpu_torch/csrc/" + source,
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, **t})
+    return rows
+
+
 # ------------------------------------------------------------------ main --
-def main() -> int:
+def main(only_unimoe: bool = False) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2824,6 +3038,17 @@ def main() -> int:
         for line in text.splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 log(f"  [{name}] {line.strip()}")
+
+    if only_unimoe:
+        _, zero, read = launch_counters(torch)
+        rows = check_unimoe(torch, gt, np.random.default_rng(17), zero, read,
+                            logs)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- phase 2: kernels vs plain versions (their times: phase 14 (d))
     rng = np.random.default_rng(0)
@@ -2954,6 +3179,10 @@ def main() -> int:
 
         # ---- phase 16: multiple processes on the card
         check_multi_device(torch, gt, tmp)
+
+        # ---- phase 17: Uni-MoE-2.0-Omni's speech path (K14, wide K5)
+        rows17 = check_unimoe(torch, gt, np.random.default_rng(17), zero,
+                              read, logs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3019,7 +3248,7 @@ def main() -> int:
                     **{k: r[k] for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_device_ms")}})
-    print(json.dumps({"kernels": out}), flush=True)
+    print(json.dumps({"kernels": out + rows17}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3030,4 +3259,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase16-worker"]:
         sys.exit(p16_worker(sys.argv[2:]))
-    sys.exit(main())
+    sys.exit(main(only_unimoe=sys.argv[1:2] == ["--phase17"]))

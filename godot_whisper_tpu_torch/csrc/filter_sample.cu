@@ -71,6 +71,11 @@
 // are capped at 80 (3 CTAs an SM), so 40 rows (8 streams of 5) take fewer
 // waves.  The cluster attribute is set once per process.
 //
+// K5 at an LM's vocabulary (152064 ids, models/unimoe.py): the same kernel
+// instantiated at 38 ids a thread with 64-bit slot masks and no register
+// cap below 255, chosen by the entry point when the plan gives more than
+// 14 ids a thread; Whisper's vocabularies keep the 14-id instantiation.
+//
 // Where the time goes (clock64 stamps of CTA 0 on an H100, K5 at (5,
 // 51864), ~16,000 cycles): ~4,000 to load and filter the slice, ~1,900 for
 // each of the three cluster exchanges (the third also waits for the CTA
@@ -89,6 +94,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;                    // non-portable cluster
 constexpr int kMaxNpt = 14;                        // 16 x 256 x 14 >= 56000
+constexpr int kWideNpt = 38;  // K5 only: 16 x 256 x 38 >= 152064 (an LM's ids)
 constexpr int kMaxParts = kMaxCluster * kWarps;    // warp partials of a row
 constexpr int kMaxK = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -170,36 +176,39 @@ __device__ __forceinline__ float parts_sum(const float* p, int n) {
 
 // Max and sum of a thread's slots by a fixed tree (short dependency chains;
 // the max is exact in any order).
-__device__ __forceinline__ float tree_max(const float (&v)[kMaxNpt]) {
-  float t[kMaxNpt];
+template <int N>
+__device__ __forceinline__ float tree_max(const float (&v)[N]) {
+  float t[N];
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s) t[s] = v[s];
+  for (int s = 0; s < N; ++s) t[s] = v[s];
 #pragma unroll
-  for (int w = 1; w < kMaxNpt; w *= 2)
+  for (int w = 1; w < N; w *= 2)
 #pragma unroll
-    for (int s = 0; s + w < kMaxNpt; s += 2 * w) t[s] = fmaxf(t[s], t[s + w]);
+    for (int s = 0; s + w < N; s += 2 * w) t[s] = fmaxf(t[s], t[s + w]);
   return t[0];
 }
-__device__ __forceinline__ float tree_sum(const float (&v)[kMaxNpt]) {
-  float t[kMaxNpt];
+template <int N>
+__device__ __forceinline__ float tree_sum(const float (&v)[N]) {
+  float t[N];
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s) t[s] = v[s];
+  for (int s = 0; s < N; ++s) t[s] = v[s];
 #pragma unroll
-  for (int w = 1; w < kMaxNpt; w *= 2)
+  for (int w = 1; w < N; w *= 2)
 #pragma unroll
-    for (int s = 0; s + w < kMaxNpt; s += 2 * w) t[s] += t[s + w];
+    for (int s = 0; s + w < N; s += 2 * w) t[s] += t[s + w];
   return t[0];
 }
 
 // The lowest slot whose v equals m (the max of v), as its id and its c;
 // id INT_MAX when m is -inf (no candidate: every other value is >= -1e30).
-__device__ __forceinline__ void first_at(const float (&v)[kMaxNpt], float m,
-                                         const float (&c)[kMaxNpt], int j0,
+template <int N>
+__device__ __forceinline__ void first_at(const float (&v)[N], float m,
+                                         const float (&c)[N], int j0,
                                          int& id, float& cv) {
   id = 0x7fffffff;
   cv = 0.f;
 #pragma unroll
-  for (int s = kMaxNpt - 1; s >= 0; --s)
+  for (int s = N - 1; s >= 0; --s)
     if (v[s] == m && m != -INFINITY) {
       id = j0 + s * kThreads;
       cv = c[s];
@@ -218,11 +227,12 @@ struct RowStats {
 // timestamp rule (-1e30 where suppressed; bit s of `sup` set) and `rs` the
 // row's lse and log-prob maxima.  Every thread of the cluster calls it;
 // it takes exchanges 1 and 2 and the cluster barrier of the entry.
+template <int N, typename M>
 __device__ __forceinline__ void filter_slice(
     const float* __restrict__ lg, const uint8_t* __restrict__ suppress,
     const int* __restrict__ st, const Params& a, int j0,
     cg::cluster_group& cluster, float2* s_x1, float* s_x2,
-    float (&x)[kMaxNpt], uint32_t& have, uint32_t& sup, RowStats& rs) {
+    float (&x)[N], M& have, M& sup, RowStats& rs) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rank = (int)cluster.block_rank(), nc = (int)cluster.num_blocks();
   const int V = a.V, beg = a.beg, eot = a.eot;
@@ -235,13 +245,13 @@ __device__ __forceinline__ void filter_slice(
   const int n_have = min(a.npt, (V - j0 + kThreads - 1) / kThreads);
   const float* lg0 = lg + j0;
   const uint8_t* sup0 = suppress + j0;
-  uint32_t sb[kMaxNpt];
+  uint32_t sb[N];
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s) {
+  for (int s = 0; s < N; ++s) {
     x[s] = s < n_have ? __ldg(lg0 + s * kThreads) : 0.f;
     sb[s] = s < n_have ? (uint32_t)__ldg(sup0 + s * kThreads) : 1u;
   }
-  have = n_have > 0 ? (2u << (n_have - 1)) - 1u : 0u;
+  have = n_have > 0 ? (M(2) << (n_have - 1)) - M(1) : M(0);
   const int is_initial = sv[0], last = sv[1], penult = sv[2];
   const int n_tokens = sv[3], has_ts = sv[4], seek_delta = sv[5];
   const bool last_was_ts = n_tokens > 0 && last >= beg;
@@ -249,10 +259,10 @@ __device__ __forceinline__ void filter_slice(
 
   // pass 1: temperature, suppression, the timestamp and text maxima; a
   // missing slot counts as suppressed
-  float tsl[kMaxNpt], txl[kMaxNpt];
+  float tsl[N], txl[N];
   sup = 0;
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s) {
+  for (int s = 0; s < N; ++s) {
     const int j = j0 + s * kThreads;
     float l = x[s];
     if (a.temperature > 0.f) l = l / fmaxf(a.temperature, 1e-8f);
@@ -265,7 +275,7 @@ __device__ __forceinline__ void filter_slice(
         (is_initial && j > beg + a.max_initial_tid) |
         (has_ts && ts && j < beg + seek_delta / 2);
     l = su ? GWT_NEG : l;
-    sup |= (uint32_t)su << s;
+    sup |= (M)su << s;
     x[s] = l;
     tsl[s] = ts ? l : GWT_NEG;
     txl[s] = ts ? GWT_NEG : l;
@@ -292,9 +302,9 @@ __device__ __forceinline__ void filter_slice(
   const float m = fmaxf(tm, xm);
 
   // pass 2 and exchange 2: the masked sum -> lse
-  float e[kMaxNpt];
+  float e[N];
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s)
+  for (int s = 0; s < N; ++s)
     e[s] = ((sup >> s) & 1u) ? 0.f : expf(x[s] - m);
   const float se = warp_sum(tree_sum(e));
   if (lane < nc) cluster.map_shared_rank(s_x2, lane)[part] = se;
@@ -306,7 +316,7 @@ __device__ __forceinline__ void filter_slice(
   rs.ts_m = tm > GWT_NEG ? tm - lse : GWT_NEG;
   rs.text_m = xm > GWT_NEG ? xm - lse : GWT_NEG;
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s)
+  for (int s = 0; s < N; ++s)
     x[s] = ((sup >> s) & 1u) ? GWT_NEG : x[s] - lse;
 }
 
@@ -322,7 +332,8 @@ struct Part5 {
   float b_lp;
 };
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int N, typename M>
+__global__ void __launch_bounds__(kThreads, N <= kMaxNpt ? 3 : 1)
     filter_sample_kernel(const float* __restrict__ logits,
                          const uint8_t* __restrict__ suppress,
                          const int* __restrict__ state,  // (B, 7)
@@ -345,8 +356,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int j0 = rank * a.npt * kThreads + tid;
   const bool use_argmax = __ldg(st + 6) != 0;
 
-  float x[kMaxNpt];
-  uint32_t have, sup;
+  float x[N];
+  M have, sup;
   RowStats rs;
   filter_slice(logits + (size_t)b * V, suppress, st, a, j0, cluster, s_x1,
                s_x2, x, have, sup, rs);
@@ -355,17 +366,17 @@ __global__ void __launch_bounds__(kThreads, 3)
   // the timestamp statistics (only warps that hold timestamp ids)
   Part5 p{0.f, 0.f, -INFINITY, 0x7fffffff, -INFINITY, 0x7fffffff, 0.f,
           -INFINITY, 0x7fffffff, 0.f};
-  float pr[kMaxNpt], sc[kMaxNpt];
+  float pr[N], sc[N];
 #pragma unroll
-  for (int s = 0; s < kMaxNpt; ++s)
+  for (int s = 0; s < N; ++s)
     pr[s] = x[s] > 0.5f * GWT_NEG ? expf(x[s]) : 0.f;
   if (use_argmax) {
 #pragma unroll
-    for (int s = 0; s < kMaxNpt; ++s)
+    for (int s = 0; s < N; ++s)
       sc[s] = ((have >> s) & 1u) ? pr[s] : -INFINITY;
   } else {
 #pragma unroll
-    for (int s = 0; s < kMaxNpt; ++s) {
+    for (int s = 0; s < N; ++s) {
       const uint32_t h =
           hash32(a.seed, (uint32_t)b, (uint32_t)(j0 + s * kThreads));
       const float u = (float)(h & 0xFFFFFFu) * (1.f / 16777216.f);
@@ -379,9 +390,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   first_at(sc, p.a_v, x, j0, p.a_i, p.a_lp);
   warp_argmax_carry(p.a_v, p.a_i, p.a_lp);
   if (j0 - lane + (a.npt - 1) * kThreads + 31 >= beg) {  // warp-uniform
-    float te[kMaxNpt], tp[kMaxNpt], tv[kMaxNpt], bv[kMaxNpt];
+    float te[N], tp[N], tv[N], bv[N];
 #pragma unroll
-    for (int s = 0; s < kMaxNpt; ++s) {
+    for (int s = 0; s < N; ++s) {
       const bool ts = ((have >> s) & 1u) && j0 + s * kThreads >= beg;
       te[s] = ts && !((sup >> s) & 1u) ? expf(x[s] - rs.ts_m) : 0.f;
       tp[s] = ts ? pr[s] : 0.f;
@@ -641,8 +652,12 @@ int cluster_attrs() {
   cudaGetDevice(&dev);
   if (dev < kMaxDevices && attr_set[dev]) return 0;
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)filter_sample_kernel,
+      (const void*)filter_sample_kernel<kMaxNpt, uint32_t>,
       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        (const void*)filter_sample_kernel<kWideNpt, uint64_t>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute((const void*)filter_topk_kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
@@ -667,11 +682,11 @@ cudaLaunchConfig_t cluster_config(int C, int B, void* stream,
 }
 
 // The plan's checks: C slices of npt * kThreads ids cover [0, V), the last
-// one not empty.
-bool plan_ok(int B, int V, int C, int npt) {
+// one not empty, npt at most max_npt.
+bool plan_ok(int B, int V, int C, int npt, int max_npt = kMaxNpt) {
   const long w = (long)npt * kThreads;
   return B >= 1 && V >= 1 && C >= 1 && C <= kMaxCluster && npt >= 1 &&
-         npt <= kMaxNpt && (long)C * w >= V && (long)(C - 1) * w < V;
+         npt <= max_npt && (long)C * w >= V && (long)(C - 1) * w < V;
 }
 
 }  // namespace
@@ -684,17 +699,27 @@ extern "C" int gwt_filter_sample(const void* logits, const void* suppress,
                                  int suppress_blank, int no_timestamps,
                                  float temperature, unsigned int seed,
                                  void* stream) {
-  if (!plan_ok(B, V, C, npt)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(B, V, C, npt, kWideNpt)) return (int)cudaErrorInvalidValue;
   const int err = cluster_attrs();
   if (err != 0) return err;
   const Params a{V, npt, eot, beg, space_id, max_initial_tid, suppress_blank,
                  no_timestamps, temperature, seed};
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(C, B, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, filter_sample_kernel, (const float*)logits,
-      (const uint8_t*)suppress, (const int*)state, a, (int*)tok, (float*)p,
-      (float*)plog, (float*)pt, (float*)ptsum, (int*)tid);
+  // up to 14 ids a thread (Whisper's vocabularies) in the kernel as it
+  // was; past that the wide instantiation (64-bit slot masks)
+  const cudaError_t e =
+      npt <= kMaxNpt
+          ? cudaLaunchKernelEx(&cfg, filter_sample_kernel<kMaxNpt, uint32_t>,
+                               (const float*)logits, (const uint8_t*)suppress,
+                               (const int*)state, a, (int*)tok, (float*)p,
+                               (float*)plog, (float*)pt, (float*)ptsum,
+                               (int*)tid)
+          : cudaLaunchKernelEx(&cfg, filter_sample_kernel<kWideNpt, uint64_t>,
+                               (const float*)logits, (const uint8_t*)suppress,
+                               (const int*)state, a, (int*)tok, (float*)p,
+                               (float*)plog, (float*)pt, (float*)ptsum,
+                               (int*)tid);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

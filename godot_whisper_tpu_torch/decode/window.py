@@ -126,25 +126,82 @@ def graph_eligible(statics: WindowStatics, device) -> bool:
             and statics.strategy != "beam")
 
 
-class StepGraph:
-    """One batch shape's ``decoder_step`` captured as a CUDA graph, with the
-    static buffers that the capture reads and writes: the step's token ids,
-    positions and cache slot (beside them the sampler's state, so a step
-    makes one upload), the prompt lengths ``lo``, the self-KV cache, and
-    the cross-KV (``StepGraphs.cross_kv``'s buffer).  The prompt pass writes
-    the self-KV in place (its ``out=``).  The shape's first step runs once
-    eagerly on the capture stream (the split-cache tickets, the kernels'
-    libraries and cuBLAS's workspace exist after it), then is captured;
-    every step replays the graph, whose kernels write ``logits``, and adds
-    the step's launches to the kernel wrappers' counters."""
+class GraphedStep:
+    """The capture and replay of a token loop's step as one CUDA graph: an
+    int32 upload buffer (pinned on the host, with its device twin ``_inp``
+    that the step reads), and ``replay``, which uploads it, captures the
+    step on first use and replays it.  A capture runs the step once
+    eagerly on a side stream first (the split-cache tickets, the kernels'
+    libraries and cuBLAS's workspace exist after it), then captures it
+    there; every replay adds the step's launches to the kernel wrappers'
+    counters.  Subclasses keep the static buffers the step reads and
+    writes, and the step's output is ``logits``."""
+
+    def __init__(self, n_upload: int, device, batch: int):
+        self.device, self.batch = device, batch
+        self._host = torch.zeros(n_upload, dtype=torch.int32)
+        if torch.device(device).type == "cuda":
+            self._host = self._host.pin_memory()
+        self._host_np = self._host.numpy()
+        self._inp = torch.zeros(n_upload, dtype=torch.int32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self._launches: Optional[K.CapturedLaunches] = None
+        self.replays = 0
+
+    def upload(self) -> None:
+        """The host buffer to the device, in stream order (the loop's
+        synchronisation on K5's outputs comes before the host writes the
+        buffer again)."""
+        self._inp.copy_(self._host, non_blocking=True)
+
+    def replay(self, run, eager=None) -> torch.Tensor:
+        """Upload, capture ``run`` on first use (after ``eager``, by
+        default ``run``, once eagerly), replay; returns the static output
+        of ``run``."""
+        self.upload()
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture(run, eager or run)
+            self.graph.replay()
+        self._launches.add()
+        self.replays += 1
+        return self.logits
+
+    def _capture(self, run, eager) -> None:
+        with tracer.span("gwt.step.capture", rows=self.batch):
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                eager()              # writes the step's K/V, as the replay
+            graph = torch.cuda.CUDAGraph()
+            with K.CapturedLaunches() as launches, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                self.logits = run()
+            cur.wait_stream(side)
+            self.graph, self._launches = graph, launches
+
+
+class StepGraph(GraphedStep):
+    """One batch shape's ``decoder_step`` captured as a CUDA graph
+    (``GraphedStep``), with the static buffers that the capture reads and
+    writes: the step's token ids, positions and cache slot (beside them
+    the sampler's state, so a step makes one upload), the prompt lengths
+    ``lo``, the self-KV cache, and the cross-KV (``StepGraphs.cross_kv``'s
+    buffer).  The prompt pass writes the self-KV in place (its ``out=``);
+    the graph's kernels write ``logits``."""
 
     def __init__(self, statics: WindowStatics, device: torch.device,
                  cdtype: torch.dtype, xkv):
         config = statics.config
         B = statics.batch
         L, S = config.n_text_layer, config.n_text_state
-        self.batch, self.kv_group = B, statics.kv_group
-        self.prompt_pad, self.device = statics.prompt_pad, device
+        # the step's upload: tokens (B), positions (B), slot (1), padding
+        # to 16 bytes, the sampler's state (B, 7)
+        self._state_at = -(-(2 * B + 1) // 4) * 4
+        super().__init__(self._state_at + 7 * B, device, B)
+        self.kv_group, self.prompt_pad = statics.kv_group, statics.prompt_pad
         cap = round_cache_len(statics.prompt_pad + statics.n_max)
 
         def zeros(shape, dtype):
@@ -154,17 +211,7 @@ class StepGraph:
                           v=zeros((L, B, cap, S), cdtype))
         self.xkv = xkv
         self.lo = zeros((B,), torch.int32)
-        # the step's upload: tokens (B), positions (B), slot (1), padding
-        # to 16 bytes, the sampler's state (B, 7)
-        self._state_at = -(-(2 * B + 1) // 4) * 4
-        n = self._state_at + 7 * B
-        self._host = torch.zeros(n, dtype=torch.int32).pin_memory()
-        self._host_np = self._host.numpy()
-        self._inp = zeros((n,), torch.int32)
         self.state = self._inp[self._state_at:].view(B, 7)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.logits: Optional[torch.Tensor] = None
-        self._launches: Optional[K.CapturedLaunches] = None
 
     def load(self, kv: KVCache, xkv, n_prompt: np.ndarray) -> None:
         """A window's prompt lengths into ``lo``; its caches must be the
@@ -182,12 +229,6 @@ class StepGraph:
         self._host_np[self._state_at:] = state.reshape(-1)
         return self.state
 
-    def upload(self) -> None:
-        """The host buffer to the device, in stream order (the loop's
-        synchronisation on K5's outputs comes before the host writes the
-        buffer again)."""
-        self._inp.copy_(self._host, non_blocking=True)
-
     def step(self, params, config: WhisperConfig, tokens: np.ndarray,
              positions: np.ndarray, slot: int) -> torch.Tensor:
         """One decoder step by replay (by capture first); returns the
@@ -196,35 +237,10 @@ class StepGraph:
         self._host_np[:B] = tokens
         self._host_np[B:2 * B] = positions
         self._host_np[2 * B] = slot
-        self.upload()
-        with torch.cuda.device(self.device):
-            if self.graph is None:
-                self._capture(params, config)
-            self.graph.replay()
-        self._launches.add()
-        return self.logits
-
-    def _capture(self, params, config: WhisperConfig) -> None:
-        B = self.batch
-
-        def run():
-            return decoder_step(
-                params, config, self._inp[:B], self._inp[B:2 * B], self.kv,
-                self.xkv, lo=self.lo, slot=self._inp[2 * B:2 * B + 1],
-                split=self.prompt_pad, kv_group=self.kv_group)[0]
-
-        with tracer.span("gwt.step.capture", rows=B):
-            cur = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                run()                # writes the step's K/V, as the replay
-            graph = torch.cuda.CUDAGraph()
-            with K.CapturedLaunches() as launches, torch.cuda.graph(
-                    graph, stream=side, capture_error_mode="thread_local"):
-                self.logits = run()
-            cur.wait_stream(side)
-            self.graph, self._launches = graph, launches
+        return self.replay(lambda: decoder_step(
+            params, config, self._inp[:B], self._inp[B:2 * B], self.kv,
+            self.xkv, lo=self.lo, slot=self._inp[2 * B:2 * B + 1],
+            split=self.prompt_pad, kv_group=self.kv_group)[0])
 
 
 class StepGraphs:

@@ -233,3 +233,79 @@ decode_attention.launches = 0
 decode_attention.group_launches = collections.Counter()
 # launches by (kv_group, query rows): a batch of B streams gives 5 * B rows
 decode_attention.rows_launches = collections.Counter()
+
+
+# ----------------------------------------------------------------- K14: GQA
+GQA_HEAD_DIMS = (128,)
+
+
+def gqa_decode_attention_plain(q, k, v, hi, *, n_head: int, n_kv_head: int,
+                               layer: int = 0):
+    """One query token a row over a grouped-query cache: q (B, H D); k / v
+    (L, B, C, Hkv D); slot c is valid iff c < hi (an int or a (1,)
+    tensor); query head j reads K/V head j // (H / Hkv).  f32 masked
+    softmax.  Returns (B, H D) f32."""
+    k, v = k[layer], v[layer]
+    b, c = k.shape[0], k.shape[1]
+    d = q.shape[1] // n_head
+    g = n_head // n_kv_head
+    qh = q.reshape(b, n_kv_head, g, d).float() * (d ** -0.5)
+    kh = k.reshape(b, c, n_kv_head, d).float()
+    vh = v.reshape(b, c, n_kv_head, d).float()
+    scores = torch.einsum("bhgd,bchd->bhgc", qh, kh)
+    ok = torch.arange(c, device=q.device) < hi
+    scores = torch.where(ok, scores, torch.full_like(scores, _NEG))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgc,bchd->bhgd", p, vh).reshape(b, n_head * d)
+
+
+def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         hi, *, n_head: int, n_kv_head: int,
+                         layer: int = 0) -> torch.Tensor:
+    """K14, kernel wrapper (csrc/decode_attn.cu, ``gqa_decode_kernel``):
+    q (B, H D) bf16; k / v (L, B, C, Hkv D) bf16; hi a host int or a (1,)
+    int32 tensor on q's device (every slot below it is valid); head dim
+    128, H / Hkv <= 8.  The split-cache design of K3 / K4 with the H / Hkv
+    query heads that read one K/V head as the rows of a group, so each K/V
+    byte is read once a step.  CPU tensors take the plain version.  Returns
+    (B, H D) f32."""
+    if q.device.type == "cpu":
+        return gqa_decode_attention_plain(q, k, v, hi, n_head=n_head,
+                                          n_kv_head=n_kv_head, layer=layer)
+    K.require_cuda("gqa_decode_attention", q, k, v)
+    b, sq = q.shape
+    n_layer, bk, c, skv = k.shape
+    g, d = n_head // n_kv_head, sq // n_head
+    if (q.dtype != torch.bfloat16 or k.dtype != q.dtype
+            or v.dtype != q.dtype or v.shape != k.shape or bk != b
+            or n_head % n_kv_head or sq != n_head * d or d not in GQA_HEAD_DIMS
+            or skv != n_kv_head * d or not 1 <= g <= MAX_KV_GROUP
+            or not 0 <= layer < n_layer
+            or k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 16):
+        raise ValueError("gqa_decode_attention: q (B, H D) bf16, k/v (L, B, "
+                         "C, Hkv D) bf16 on 16-byte boundaries, head dim "
+                         "128, H / Hkv <= 8")
+    hi_ptr = 0
+    if isinstance(hi, torch.Tensor):
+        if (hi.device != q.device or hi.dtype != torch.int32
+                or tuple(hi.shape) != (1,)):
+            raise ValueError("gqa_decode_attention: a tensor hi is (1,) "
+                             "int32 on q's device")
+        hi, hi_ptr = 0, hi.data_ptr()
+    sl, (n_split,) = split_plan(((c, 1),), b * n_kv_head, K.sm_count(
+        q.device.index))
+    buf = torch.empty(b * sq + b * n_kv_head * n_split * g * (d + 2),
+                      dtype=torch.float32, device=q.device)
+    out = buf[:b * sq].view(b, sq)
+    fn = K.entry("decode_attn", "gwt_gqa_decode_attn",
+                 (K.P,) * 6 + (K.I,) * 6 + (K.P, K.F, K.I, K.I, K.P))
+    K.launch(fn, "gwt_gqa_decode_attn", q.device,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             buf[b * sq:].data_ptr(),
+             K.tickets(q.device, b * n_kv_head).data_ptr(), int(layer), b, c,
+             n_kv_head, g, int(hi), hi_ptr, float(d ** -0.5), sl, n_split)
+    K.count(gqa_decode_attention)
+    return out
+
+
+gqa_decode_attention.launches = 0

@@ -35,20 +35,23 @@ _MASK32 = 0xFFFFFFFF
 FILTER_THREADS = 256      # threads of one CTA
 MAX_FILTER_CLUSTER = 16   # CTAs of a row's cluster (not portable past 8)
 MAX_VOCAB = 56000         # ids a row may have: 16 x 256 x 14 slots
+WIDE_VOCAB = 155648       # K5 alone: 16 x 256 x 38 slots (an LM's ids)
 MAX_TOPK = 32             # K6's candidates per row
 
 
-def filter_plan(B: int, V: int) -> Tuple[int, int]:
+def filter_plan(B: int, V: int, max_vocab: int = MAX_VOCAB
+                ) -> Tuple[int, int]:
     """K5 / K6's cluster size C and slice width W for rows of V ids: grid
     (C, B), CTA r takes ids [r W, min(r W + W, V)), thread t of it ids
     r W + i 256 + t.  W is a whole number of 256-id steps (a warp's 32 ids
     of one step are consecutive) and C the fewest CTAs that cover V with at
     most 16 CTAs; at V 51864 or 51866: (16, 3328), 13 ids a thread.  V
     alone decides, never the row's state, so every call and graph replay
-    has one grid.  Raises past V 56000 (14 ids a thread)."""
-    if B < 1 or not 1 <= V <= MAX_VOCAB:
+    has one grid.  Raises past V ``max_vocab``: 56000 (14 ids a thread),
+    or for K5 ``WIDE_VOCAB`` (38 ids a thread; at V 152064: (16, 9728))."""
+    if B < 1 or not 1 <= V <= max_vocab:
         raise ValueError(f"filter_plan: {B} rows of {V} ids "
-                         f"(1 <= V <= {MAX_VOCAB})")
+                         f"(1 <= V <= {max_vocab})")
     step = MAX_FILTER_CLUSTER * FILTER_THREADS
     width = -(-V // step) * FILTER_THREADS
     return -(-V // width), width
@@ -212,7 +215,7 @@ def fused_filter_sample(logits: torch.Tensor, suppress: torch.Tensor,
             or tuple(state.shape) != (B, 7)):
         raise ValueError("fused_filter_sample: logits (B, V) f32, "
                          "suppress (V,) bool, state (B, 7) int32")
-    C, width = filter_plan(B, V)
+    C, width = filter_plan(B, V, WIDE_VOCAB)
     dev = logits.device
     tok = torch.empty(B, dtype=torch.int32, device=dev)
     tid = torch.empty(B, dtype=torch.int32, device=dev)

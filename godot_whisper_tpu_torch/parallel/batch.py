@@ -92,8 +92,11 @@ class BatchTranscriber:
                    tparams: Optional[TranscribeParams] = None
                    ) -> List[List[Segment]]:
         """Segments of every clip, in order."""
-        pipe: WhisperPipeline = self.ctx.pipeline
         tparams = tparams or TranscribeParams()
+        if getattr(self.ctx, "family", "whisper") != "whisper":
+            # a decoder-only audio LM (decode/omni.py) runs its own batch
+            return self.ctx.transcribe_batch(clips, tparams)
+        pipe: WhisperPipeline = self.ctx.pipeline
         if not clips:
             return []
         if not self._eligible(tparams):
