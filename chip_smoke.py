@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase17     # phases 1 and 17 alone
+    python3 chip_smoke.py --phase18     # phases 1 and 18 alone
 
 Phases (any failure exits non-zero; no phase carries on past its own):
 
@@ -41,7 +42,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tests/golden/nano_clip_scenarios.json token for token.
 4. main path -- WhisperContext.synthetic("tiny.en", seed=0) (bf16)
    .full(TranscribeParams(), 34 s of audio) with every launch counter set
-   to 0 just before; every kernel of the greedy path must have launched.
+   to 0 just before; every kernel of the greedy path must have launched,
+   and K1's pad kernel as often as K1.
 5. beam path -- the same context .full(TranscribeParams(strategy=
    BEAM_SEARCH), the same audio), counters zeroed just before; K6 and K7
    must have launched and K4 with kv_group 5.
@@ -76,9 +78,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    layers), K2 never; K1, K3/K4 and K5 must launch.
 11. batched -- a fresh synthetic("tiny.en", seed=0) (bf16):
    BatchTranscriber.transcribe(8 clips of 10-34 s, TranscribeParams()),
-   counters zeroed just before: K1 once, K2, K3 and K4 at 40 rows (8
-   streams x 5 decoder rows) and K5 must launch, every segment well
-   formed.  The nano model (3 text layers, f32, TF32 off) batched must
+   counters zeroed just before: K1 and its pad kernel once, K2, K3 and
+   K4 at 40 rows (8 streams x 5 decoder rows) and K5 must launch, every
+   segment well formed.  The nano model (3 text layers, f32, TF32 off) batched must
    equal single-stream token for token (t = 0 rung, gates open).  Then
    audio-s/s at B = 1 (the 8 clips one at a time), 8 and 16 (the 8 twice),
    interleaved medians of 3, how many bf16 streams equal their
@@ -185,6 +187,15 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    weights drawn on the card), counters zeroed just before the second
    batch: 101 tokens a row, K1 once, K2, K14 28 times a forward step, K5
    once a step, K3 / K4 never.  Their two rows join the kernels line.
+18. K1's pad kernel (``ops/mel_kernel.py::pad_stack``, csrc/mel.cu's
+   ``gwt_mel_pad``): (a) ``MelFrontend.device_batch`` of 32 clips of
+   30 s and of a ragged batch of 16 (offsets no multiple of 8) equal to
+   the host-padded route's mel; (b) the kernel equal to its plain version
+   at B 32 x 30 s, and timed there as cli.bench times a kernel (device ms
+   of 10 calls in a CUDA graph); (c) the host ms of a
+   batch's ``device_batch`` against the host-padded route's (median of 5,
+   each synchronized); (d) one batch launches the pad kernel and K1 once
+   each.  Its row joins the kernels line, with phase 4's launches.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 the final ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
@@ -1298,7 +1309,7 @@ def median(xs):
 
 def check_batched(torch, gt, ctx, zero, read):
     """Phase 11: BatchTranscriber over 8 clips at B = 8 on tiny.en bf16
-    (K1 once, K2-K5, K3 / K4 at 40 rows); nano f32 batched equal to
+    (the pad kernel and K1 once, K2-K5, K3 / K4 at 40 rows); nano f32 batched equal to
     single-stream; audio-s/s at B = 1, 8, 16; full_parallel(n=4)."""
     from godot_whisper_tpu_torch.ops.decode_attention import decode_attention
     from godot_whisper_tpu_torch.parallel.batch import BatchTranscriber
@@ -1327,11 +1338,12 @@ def check_batched(torch, gt, ctx, zero, read):
         f"{rows}")
     for b, segs in enumerate(res8):
         check_segments(f"batched stream {b}", segs, n_vocab)
-    if not (n["log_mel_raw"] == 1 and n["flash_attention_bh"]
+    if not (n["log_mel_raw"] == n["pad_stack"] == 1
+            and n["flash_attention_bh"]
             and n["fused_filter_sample"] and rows.get((1, 40))
             and rows.get((5, 40))) or n["flash_attention_long"]:
-        fail("the batched path did not launch K1 once and K2, K3 / K4 at "
-             "40 rows and K5")
+        fail("the batched path did not launch the pad kernel and K1 once "
+             "and K2, K3 / K4 at 40 rows and K5")
 
     # nano f32 (TF32 off): batched equals single-stream token for token
     nctx = nano3(torch, gt)
@@ -1860,7 +1872,7 @@ def launch_counters(torch):
     from godot_whisper_tpu_torch.ops.filter_sample import (fused_filter_sample,
                                                            fused_filter_topk)
     from godot_whisper_tpu_torch.ops.kv_reorder import reorder_kv_live
-    from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw
+    from godot_whisper_tpu_torch.ops.mel_kernel import log_mel_raw, pad_stack
     from godot_whisper_tpu_torch.ops.qmatmul import (quant_matmul,
                                                      quant_matmul4)
     from godot_whisper_tpu_torch.ops.split_attention import \
@@ -1868,7 +1880,8 @@ def launch_counters(torch):
     counters = (log_mel_raw, flash_attention_bh, decode_attention,
                 fused_filter_sample, fused_filter_topk, split_beam_attention,
                 reorder_kv_live, quant_matmul, quant_matmul4, xattn_q_wide,
-                xattn_q_packed, flash_attention_long, gqa_decode_attention)
+                xattn_q_packed, flash_attention_long, gqa_decode_attention,
+                pad_stack)
 
     def zero(c):
         for fn in counters:
@@ -2991,12 +3004,14 @@ def check_unimoe(torch, gt, rng, zero, read, ptx_logs) -> list:
         f"{grp}")
     if not (len(toks) == 32 and min(toks) == max(toks) == 101
             and steps == 101 and got["log_mel_raw"] == 1
+            and got["pad_stack"] == 1
             and got["flash_attention_bh"]
             and got["gqa_decode_attention"] == cfg.n_layer * (steps - 1)
             and got["fused_filter_sample"] == steps
             and not got["decode_attention"]):
         fail("the Uni-MoE main path did not run 101 tokens a row through "
-             "K1, K2, K14 (28 a forward step) and K5 (one a step)")
+             "the pad kernel, K1, K2, K14 (28 a forward step) and K5 (one "
+             "a step)")
     del bt, ctx, params
     torch.cuda.empty_cache()
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
@@ -3014,8 +3029,121 @@ def check_unimoe(torch, gt, rng, zero, read, ptx_logs) -> list:
     return rows
 
 
+# -------------------------------------------------------------- phase 18 --
+class CountingSpan:
+    """Stands in for a tracer span: keeps the counts it is ``set``."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def set(self, **counts):
+        self.counts.update(counts)
+
+
+def host_padded_stack(clips):
+    """The host route the pad kernel replaced: ``pad_audio`` per clip,
+    numpy's f16 cast, zeros to the longest clip's 30 s bucket."""
+    from godot_whisper_tpu_torch.audio.mel import pad_audio
+    padded = [pad_audio(c) for c in clips]
+    bucket = max(-(-len(p) // 480000) * 480000 for p in padded)
+    stack = np.zeros((len(clips), bucket), dtype=np.float16)
+    with np.errstate(over="ignore"):
+        for i, p in enumerate(padded):
+            stack[i, :len(p)] = p.astype(np.float16)
+    return stack
+
+
+def check_mel_pad(torch, rng, zero, read, ptx_logs, n_main=None) -> list:
+    """Phase 18 (module docstring).  Returns the pad kernel's row of the
+    kernels line, whose launches are ``n_main``, the main path's (phase
+    4), or with phases 1 and 18 alone (d)'s."""
+    from godot_whisper_tpu_torch.audio.mel import (MelFrontend,
+                                                   mel_filterbank,
+                                                   normalize_log_mel)
+    from godot_whisper_tpu_torch.cli import bench
+    from godot_whisper_tpu_torch.ops import mel_kernel as M
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    log_ptxas(ptx_logs, "mel", "mel_pad_kernel", dynamic=False)
+    filt = mel_filterbank(128)
+    tables = M.mel_tables(torch.from_numpy(M.dft_basis()).to(dev),
+                          torch.from_numpy(filt).to(dev))
+    long_ = [(rng.standard_normal(480000) * 0.1).astype(np.float32)
+             for _ in range(32)]
+    ragged = [(rng.standard_normal(int(n)) * 0.1).astype(np.float32)
+              for n in rng.integers(1, 480001, 16)]
+
+    # (a) the front end against the host-padded route
+    front = MelFrontend(filt, dev)
+
+    def host_route(clips):
+        a = torch.from_numpy(host_padded_stack(clips)).to(dev)
+        return normalize_log_mel(M.log_mel_raw(a, tables))
+
+    for what, clips in (("32 x 30 s", long_), ("16 ragged", ragged)):
+        span = CountingSpan()
+        mel, _ = front.device_batch(clips, span=span)
+        same = bool(torch.equal(mel, host_route(clips)))
+        log(f"K1 pad: device_batch of {what} equal to the host-padded "
+            f"route's mel {same}; {span.counts}")
+        if not same:
+            fail(f"MelFrontend.device_batch differs from the host-padded "
+                 f"route ({what})")
+
+    # (b) the kernel against its plain version, and its times, at the long
+    # batch
+    B, n = 32, 480000
+    bucket = 1440000
+    flat = torch.from_numpy(np.concatenate(long_)).to(dev)
+    off = torch.arange(B, device=dev, dtype=torch.int64) * n
+    lens = torch.full((B,), n, device=dev, dtype=torch.int64)
+    if not torch.equal(M.pad_stack(flat, off, lens, bucket),
+                       M.pad_stack_plain(flat, off, lens, bucket)):
+        fail("the pad kernel differs from its plain version")
+    case = bench.KernelCase(
+        "mel_pad", f"K1 pad pad_stack (B {B}, {n} samples a clip, bucket "
+        f"{bucket})",
+        lambda: M.pad_stack(flat, off, lens, bucket),
+        lambda: M.pad_stack_plain(flat, off, lens, bucket), None,
+        4 * B * n + 16 * B + 2 * B * bucket, 0.0, "f32", reps=10)
+    t = bench.time_case(case)
+    log(f"K1 pad times: {json.dumps(t)}; {card_line()}")
+
+    # (c) a batch's host time, the device route against the host route
+    for what, fn in (("device_batch", lambda: front.device_batch(long_)),
+                     ("host-padded route", lambda: host_route(long_))):
+        host_ms, sync_ms = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host_ms.append((t1 - t0) * 1e3)
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"K1 pad: {what} of 32 x 30 s: host ms {median(host_ms):.2f} "
+            f"(min {min(host_ms):.2f}), synchronized ms "
+            f"{median(sync_ms):.2f} (min {min(sync_ms):.2f})")
+
+    # (d) launches of one batch
+    zero(None)
+    front.device_batch(long_)
+    got, _ = read()
+    log(f"K1 pad: one batch's launches pad_stack {got['pad_stack']}, "
+        f"log_mel_raw {got['log_mel_raw']}")
+    if not (got["pad_stack"] == 1 and got["log_mel_raw"] == 1):
+        fail("a batch did not launch the pad kernel and K1 once each")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return [{"name": "pad_stack", "route": "cuda",
+             "source": "godot_whisper_tpu_torch/csrc/mel.cu",
+             "replaces": None,
+             "launches": got["pad_stack"] if n_main is None else n_main,
+             "max_abs_err": 0.0, **t}]
+
+
 # ------------------------------------------------------------------ main --
-def main(only_unimoe: bool = False) -> int:
+def main(only: str = "") -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3039,10 +3167,12 @@ def main(only_unimoe: bool = False) -> int:
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 log(f"  [{name}] {line.strip()}")
 
-    if only_unimoe:
+    if only:
         _, zero, read = launch_counters(torch)
-        rows = check_unimoe(torch, gt, np.random.default_rng(17), zero, read,
-                            logs)
+        rows = (check_unimoe(torch, gt, np.random.default_rng(17), zero,
+                             read, logs) if only == "--phase17" else
+                check_mel_pad(torch, np.random.default_rng(18), zero, read,
+                              logs))
         print(json.dumps({"kernels": rows}), flush=True)
         print(card_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -3086,8 +3216,10 @@ def main(only_unimoe: bool = False) -> int:
     launches, groups, segs4 = drive("main path: tiny.en bf16, 34.0 s audio",
                                     ctx, gt.TranscribeParams(), 34.0)
     if not all(launches[fn.__name__] for fn in counters[:4]) or not (
-            groups.get(1) and groups.get(5)):
-        fail("a kernel of the main path never launched")
+            groups.get(1) and groups.get(5)) or (
+            launches["pad_stack"] != launches["log_mel_raw"]):
+        fail("a kernel of the main path never launched, or the pad kernel "
+             "not once a K1 launch")
 
     # ---- phase 5: the beam path (tiny.en, full width)
     beam = gt.SamplingStrategy.BEAM_SEARCH
@@ -3183,6 +3315,10 @@ def main(only_unimoe: bool = False) -> int:
         # ---- phase 17: Uni-MoE-2.0-Omni's speech path (K14, wide K5)
         rows17 = check_unimoe(torch, gt, np.random.default_rng(17), zero,
                               read, logs)
+
+        # ---- phase 18: K1's pad kernel
+        rows18 = check_mel_pad(torch, np.random.default_rng(18), zero, read,
+                               logs, n_main=launches["pad_stack"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3248,7 +3384,7 @@ def main(only_unimoe: bool = False) -> int:
                     **{k: r[k] for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_device_ms")}})
-    print(json.dumps({"kernels": out + rows17}), flush=True)
+    print(json.dumps({"kernels": out + rows17 + rows18}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3259,4 +3395,5 @@ def main(only_unimoe: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase16-worker"]:
         sys.exit(p16_worker(sys.argv[2:]))
-    sys.exit(main(only_unimoe=sys.argv[1:2] == ["--phase17"]))
+    sys.exit(main(only=next((a for a in sys.argv[1:2]
+                             if a in ("--phase17", "--phase18")), "")))

@@ -17,7 +17,11 @@ padded audio is bucketed to 30 s multiples and rounded to float16 before
 the spectrogram (the JAX package ships PCM to the device as f16), which is
 part of the function the golden transcripts depend on.  ``device_batch``
 pads a batch of clips to the longest one's bucket and runs ONE K1 launch
-over all of them, each clip normalized by its own maximum.
+over all of them, each clip normalized by its own maximum.  The host
+ships only the clips' real f32 samples (on a CUDA device out of a pinned
+buffer); the padding, the bucket and the f16 rounding are done on the
+device by ``ops/mel_kernel.py::pad_stack``, bit for bit as ``pad_audio``
+and numpy's f16 cast do them on the host.
 
 The host versions are copied from the JAX package as numpy: the f64 oracle
 ``log_mel_np``, the streaming unit ``log_mel_frames_raw`` (raw log10 of a
@@ -31,13 +35,14 @@ result back into the device route.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.config import CHUNK_SECONDS, HOP_LENGTH, N_FFT, SAMPLE_RATE
-from ..ops.mel_kernel import dft_basis, log_mel_raw, mel_tables
+from ..ops.mel_kernel import dft_basis, log_mel_raw, mel_tables, pad_stack
 
 N_FFT_BINS = N_FFT // 2 + 1  # 201
 _PAD = N_FFT // 2            # 200
@@ -187,7 +192,12 @@ def _bucket(n_padded: int) -> int:
 
 class MelFrontend:
     """Mel filterbank + DFT basis resident on one device, with kernel K1's
-    tables derived from them once."""
+    tables derived from them once.  On a CUDA device a batch's samples
+    are staged in one pinned buffer of ``STAGED`` samples, made at the
+    first batch; a batch that outgrows it is copied from pageable memory
+    (a long batch's copy takes 3x the host time that way: PERF.md)."""
+
+    STAGED = 1 << 24   # 16.8 M samples: 32 clips of 30 s (15.36 M) fit
 
     def __init__(self, filters: np.ndarray, device):
         self.filters = np.asarray(filters, dtype=np.float32)
@@ -196,34 +206,56 @@ class MelFrontend:
         self._tables = mel_tables(
             torch.from_numpy(dft_basis()).to(self.torch_device),
             torch.from_numpy(self.filters).to(self.torch_device))
+        self._staging: Optional[torch.Tensor] = None
+        self._copied = None    # CUDA event after the last copy out of it
+        self._lock = threading.Lock()
 
-    def device(self, samples: np.ndarray) -> Tuple[torch.Tensor, int]:
-        """Device-resident mel: ((n_mels, bucketed_frames) f32, n_len)."""
-        samples = np.asarray(samples, dtype=np.float32)
-        n_len, _ = frame_counts(len(samples))
-        padded = pad_audio(samples)
-        padded = np.pad(padded, (0, _bucket(len(padded)) - len(padded)))
-        audio = torch.from_numpy(padded.astype(np.float16)).to(
-            self.torch_device)
-        raw = log_mel_raw(audio[None], self._tables)[0]
-        mel = normalize_log_mel(raw)
-        return mel, min(n_len, mel.shape[1])
+    def device(self, samples: np.ndarray, span=None
+               ) -> Tuple[torch.Tensor, int]:
+        """Device-resident mel: ((n_mels, bucketed_frames) f32, n_len), row
+        0 of ``device_batch([samples])``."""
+        mel, n_lens = self.device_batch([samples], span=span)
+        return mel[0], n_lens[0]
 
-    def device_batch(self, clips: Sequence[np.ndarray]
+    def device_batch(self, clips: Sequence[np.ndarray], span=None
                      ) -> Tuple[torch.Tensor, List[int]]:
         """Mel of a batch of clips on the device: ((B, n_mels, F) f32,
         [n_len per clip]).  Every clip is padded into the bucket of the
-        longest, and one K1 launch covers the batch."""
-        n_lens = [frame_counts(len(c))[0] for c in clips]
-        padded = [pad_audio(c) for c in clips]
-        bucket = max(_bucket(len(p)) for p in padded)
-        stack = np.zeros((len(clips), bucket), dtype=np.float16)
-        for i, p in enumerate(padded):
-            stack[i, :len(p)] = p.astype(np.float16)
-        raw = log_mel_raw(torch.from_numpy(stack).to(self.torch_device),
-                          self._tables)
-        mel = normalize_log_mel(raw)
-        return mel, [min(n, mel.shape[2]) for n in n_lens]
+        longest, and one K1 launch covers the batch.  The clips' samples go
+        to the device back to back, with each clip's offset and length;
+        ``span`` (a tracer span) is given the bytes of samples shipped as
+        ``h2d_bytes``."""
+        clips = [np.asarray(c, dtype=np.float32) for c in clips]
+        lens = [len(c) for c in clips]
+        bucket = max(_bucket(n + _CHUNK + 2 * _PAD) for n in lens)
+        index = torch.tensor([[0] + lens[:-1], lens], dtype=torch.int64)
+        index[0] = index[0].cumsum(0)
+        index = index.to(self.torch_device)
+        flat = self._ship(clips, sum(lens))
+        if span is not None:
+            span.set(h2d_bytes=4 * flat.numel())
+        stack = pad_stack(flat, index[0], index[1], bucket)
+        mel = normalize_log_mel(log_mel_raw(stack, self._tables))
+        return mel, [min(frame_counts(n)[0], mel.shape[2]) for n in lens]
+
+    def _ship(self, clips: List[np.ndarray], n: int) -> torch.Tensor:
+        """The clips' n samples back to back on the device: one
+        non-blocking copy out of the pinned buffer, which waits for the
+        last copy out of it to finish before it is rewritten."""
+        dev = self.torch_device
+        if dev.type != "cuda" or n > self.STAGED:
+            return torch.from_numpy(np.concatenate(clips)).to(dev)
+        with self._lock:
+            if self._staging is None:
+                self._staging = torch.empty(self.STAGED, dtype=torch.float32,
+                                            pin_memory=True)
+            elif self._copied is not None:
+                self._copied.synchronize()
+            np.concatenate(clips, out=self._staging.numpy()[:n])
+            flat = self._staging[:n].to(dev, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(dev))
+        return flat
 
     def precompute_host_mels(self, clips: Sequence[np.ndarray],
                              n_frames: Optional[int] = None

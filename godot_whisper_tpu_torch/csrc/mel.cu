@@ -1,4 +1,6 @@
-// K1: log-mel spectrogram, raw log10 (before the clip-global max-8 clamp).
+// K1: log-mel spectrogram, raw log10 (before the clip-global max-8 clamp),
+// and gwt_mel_pad, which builds K1's padded float16 input on the card
+// (below).
 //
 // Replaces the TPU kernel `_mel_kernel` (godot_whisper_tpu/ops/mel_kernel.py,
 // reached through `_log_mel_pallas`).  Same function: frames of 400 samples
@@ -355,6 +357,65 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// K1's input from a batch's real samples: gwt_mel_pad.  It replaces no TPU
+// kernel: the JAX package pads each clip on the host (audio/mel.py's
+// pad_audio), buckets the batch and ships the float16 stack.  Here the
+// host ships only the clips' float32 samples, back to back, with each
+// clip's offset and length, and this kernel writes the (B, bucket) float16
+// stack K1 reads: for clip b with n samples x and padded position p,
+// x[m - p] for p < m, m = min(n - 1, 200) (the reflection, whose short-clip
+// form leaves zeros after the reversed samples), x[p - 200] for
+// 200 <= p < 200 + n, else 0; each value rounded by __float2half_rn, to
+// nearest even as numpy's astype(np.float16), subnormals included.
+//
+// Bound on an H100: bytes.  Each real sample is read about once (the head
+// reads 200 again) and the stack written once: a batch of 32 clips of 30 s
+// reads 61.4 MB and writes 92.2 MB, ~46 us at 3.35 TB/s.  A thread writes
+// 8 halves as one 16-byte store (a row is a multiple of 8 halves, so every
+// store is aligned); its 8 reads are consecutive floats of one clip at any
+// offset, which the warp's neighbours share in L1.  Positions past the
+// clip's samples read nothing.
+constexpr int kPad = kNFFT / 2;  // 200
+constexpr int kPadThreads = 256;
+
+__device__ __forceinline__ uint32_t half_bits(float v) {
+  return (uint32_t)__half_as_ushort(__float2half_rn(v));
+}
+
+__global__ void __launch_bounds__(kPadThreads)
+    mel_pad_kernel(const float* __restrict__ x,
+                   const long long* __restrict__ offsets,  // (B,)
+                   const long long* __restrict__ lengths,  // (B,)
+                   __half* __restrict__ out,               // (B, bucket)
+                   int bucket) {
+  const int b = blockIdx.y;
+  const long long p0 =
+      8LL * ((long long)blockIdx.x * kPadThreads + threadIdx.x);
+  if (p0 >= bucket) return;
+  const long long n = lengths[b];
+  const float* xb = x + offsets[b];
+  const long long m = n <= kPad ? n - 1 : kPad;  // -1 for an empty clip
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long p = p0 + 2 * j + e;
+      float s = 0.f;
+      if (p < kPad) {
+        if (p < m) s = __ldg(xb + (m - p));
+      } else if (p - kPad < n) {
+        s = __ldg(xb + (p - kPad));
+      }
+      v[e] = s;
+    }
+    w[j] = half_bits(v[0]) | (half_bits(v[1]) << 16);
+  }
+  *reinterpret_cast<uint4*>(out + (size_t)b * bucket + p0) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 }  // namespace
 
 constexpr int kMaxDevices = 64;
@@ -384,5 +445,19 @@ extern "C" int gwt_mel(const void* audio, const void* fbasis, const void* runs,
   mel_tc_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const __half*)audio, (const float*)fbasis, (const int*)runs,
       (const float*)wts, (float*)out, L, F, n_mels, n_w);
+  return (int)cudaGetLastError();
+}
+
+// x: the clips' f32 samples back to back; offsets, lengths (B,) int64:
+// clip b is x[offsets[b], offsets[b] + lengths[b]); out (B, bucket) f16,
+// bucket a multiple of 8.
+extern "C" int gwt_mel_pad(const void* x, const void* offsets,
+                           const void* lengths, void* out, int B, int bucket,
+                           void* stream) {
+  const int per_row = bucket / 8;
+  const dim3 grid((per_row + kPadThreads - 1) / kPadThreads, B);
+  mel_pad_kernel<<<grid, kPadThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const long long*)offsets, (const long long*)lengths,
+      (__half*)out, bucket);
   return (int)cudaGetLastError();
 }

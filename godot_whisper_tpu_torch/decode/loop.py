@@ -161,9 +161,11 @@ class WhisperPipeline:
     # ------------------------------------------------------------------ mel
     def set_audio(self, samples: np.ndarray) -> None:
         t0 = time.perf_counter()
-        with tracer.span("gwt.mel", device=self.mel.torch_device, clips=1):
+        with tracer.span("gwt.mel", device=self.mel.torch_device,
+                         clips=1) as sp:
             self._samples = np.asarray(samples, dtype=np.float32)
-            self._mel_device, self._mel_n_len = self.mel.device(samples)
+            self._mel_device, self._mel_n_len = self.mel.device(samples,
+                                                                span=sp)
             _, self._n_len_org = frame_counts(len(samples))
         self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
 

@@ -176,8 +176,9 @@ class UniMoEContext:
         B = len(rows)
         with tracer.span("gwt.batch", clips=len(clips)):
             t0 = time.perf_counter()
-            with tracer.span("gwt.mel", device=dev, clips=B):
-                mel, _ = self.mel.device_batch([r[2] for r in rows])
+            with tracer.span("gwt.mel", device=dev, clips=B) as sp:
+                mel, _ = self.mel.device_batch([r[2] for r in rows],
+                                               span=sp)
             t1 = time.perf_counter()
             self.timings.t_mel_us += int((t1 - t0) * 1e6)
             with tracer.span("gwt.encode", device=dev, rows=B):

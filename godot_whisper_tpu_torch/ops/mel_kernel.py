@@ -7,7 +7,8 @@ periodic-Hann windowed DFT, power over 201 bins, the mel filterbank,
 stay outside the kernel (audio/mel.py), as in the JAX package.  The kernel
 runs the DFT on the tensor cores in split TF32 against a basis stored in
 its fragment order and sums each mel's run of nonzero bins (``MelTables``,
-built once per filterbank).
+built once per filterbank).  ``pad_stack`` builds K1's input on the card
+(csrc/mel.cu's ``gwt_mel_pad``) from a batch's real samples.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..models.config import HOP_LENGTH, N_FFT
 from . import kernels as K
 
 N_FFT_BINS = N_FFT // 2 + 1  # 201
+PAD = N_FFT // 2             # samples reflected at a clip's head
 K_STEPS = N_FFT // 8        # the kernel's mma k-steps
 BIN_TILES = 26               # the kernel's 8-bin tiles: 208 >= 201 bins
 
@@ -164,3 +166,51 @@ def log_mel_raw(audio: torch.Tensor, tables: MelTables) -> torch.Tensor:
 
 
 log_mel_raw.launches = 0
+
+
+def pad_stack_plain(flat: torch.Tensor, offsets: torch.Tensor,
+                    lengths: torch.Tensor, bucket: int) -> torch.Tensor:
+    """(B, bucket) f16: row b is clip b, ``flat[offsets[b]:][:lengths[b]]``,
+    as audio/mel.py's ``pad_audio`` pads it (its samples 1..200 reversed at
+    the head, for a clip of n <= 200 its n - 1 reversed samples and then
+    zeros), rounded to f16 and followed by zeros; positions past
+    ``bucket`` are dropped."""
+    B = offsets.numel()
+    out = torch.zeros((B, bucket), dtype=torch.float16, device=flat.device)
+    for b, (o, n) in enumerate(zip(offsets.tolist(), lengths.tolist())):
+        x = flat[o:o + n]
+        m = min(n - 1, PAD)
+        if m > 0:
+            out[b, :m] = x[1:m + 1].flip(0)
+        k = max(0, min(n, bucket - PAD))
+        out[b, PAD:PAD + k] = x[:k]
+    return out
+
+
+def pad_stack(flat: torch.Tensor, offsets: torch.Tensor,
+              lengths: torch.Tensor, bucket: int) -> torch.Tensor:
+    """Kernel wrapper: CUDA tensors launch csrc/mel.cu's ``gwt_mel_pad``,
+    CPU tensors take ``pad_stack_plain``.  ``flat`` (N,) f32, the clips'
+    samples back to back; ``offsets`` and ``lengths`` (B,) int64 on its
+    device; ``bucket`` a multiple of 8 of at least 400."""
+    if flat.device.type == "cpu":
+        return pad_stack_plain(flat, offsets, lengths, bucket)
+    K.require_cuda("pad_stack", flat, offsets, lengths)
+    B = offsets.numel()
+    if (flat.dtype != torch.float32 or flat.dim() != 1
+            or offsets.dtype != torch.int64 or lengths.dtype != torch.int64
+            or lengths.numel() != B or not 0 < B <= 65535
+            or bucket % 8 or not N_FFT <= bucket < 2 ** 31):
+        raise ValueError("pad_stack: flat (N,) f32, offsets and lengths "
+                         "(B,) int64 with 0 < B <= 65535, bucket a "
+                         "multiple of 8 in [400, 2^31)")
+    out = torch.empty((B, bucket), dtype=torch.float16, device=flat.device)
+    fn = K.entry("mel", "gwt_mel_pad", (K.P, K.P, K.P, K.P, K.I, K.I, K.P))
+    K.launch(fn, "gwt_mel_pad", flat.device, flat.data_ptr(),
+             offsets.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+             bucket)
+    pad_stack.launches += 1
+    return out
+
+
+pad_stack.launches = 0

@@ -112,8 +112,8 @@ class BatchTranscriber:
             prompt_init, no_timestamps = self._prompt_init(tparams)
             t0 = time.perf_counter()
             with tracer.span("gwt.mel", device=pipe.mel.torch_device,
-                             clips=len(clips)):
-                mel, n_lens = pipe.mel.device_batch(clips)
+                             clips=len(clips)) as sp:
+                mel, n_lens = pipe.mel.device_batch(clips, span=sp)
             t1 = time.perf_counter()
             pipe.timings.t_mel_us += int((t1 - t0) * 1e6)
 

@@ -18,8 +18,9 @@ import pytest
 import torch
 
 import godot_whisper_tpu_torch as gt
-from chip_smoke import (blocked_bf16_limit, filter_edge_errors,
-                        frozen_audio, mel_f64, mel_limit, mel_tf32_one_pass)
+from chip_smoke import (CountingSpan, blocked_bf16_limit,
+                        filter_edge_errors, frozen_audio, host_padded_stack,
+                        mel_f64, mel_limit, mel_tf32_one_pass)
 from godot_whisper_tpu_torch.audio.mel import (frame_counts, mel_filterbank,
                                                pad_audio)
 from godot_whisper_tpu_torch.decode.filters import build_filter_context
@@ -134,6 +135,96 @@ def test_mel_kernel_dense_filterbank(cuda):
     print(f"K1 dense 128 mels: f64 error {e_ref:.3e}, limit {lim:.3e}, "
           f"against plain {e_plain:.3e}")
     assert e_ref < lim
+
+
+MEL_PAD_EDGES = [0, 1, 2, 150, 199, 200, 201, 202, 479_799, 480_000,
+                 480_001]
+
+
+def _mel_pad_lengths(case):
+    rng = np.random.default_rng(len(case))
+    if case == "edges":
+        return MEL_PAD_EDGES
+    if case == "b1":
+        return [476_321]
+    if case == "b16":
+        return [int(n) for n in rng.integers(32_000, 128_001, 15)] + [
+            480_000]
+    return [int(n) for n in rng.integers(1, 480_001, 24)] + [480_000] * 8
+
+
+@pytest.mark.parametrize("case", ["edges", "b1", "b16", "b32"])
+def test_mel_pad_kernel_equals_host_padding(cuda, case):
+    """``gwt_mel_pad`` (``pad_stack``) on clips stored back to back
+    between other samples, at offsets no multiple of 8, with values over
+    the f16 range and past it: the stack equals the host padding bit for
+    bit (the edge lengths also one clip at a time), and K1's raw mel of it
+    equals K1's of the host stack; ``MelFrontend.device_batch`` gives the
+    host-padded route's mel and frame counts exactly."""
+    from godot_whisper_tpu_torch.audio.mel import (MelFrontend,
+                                                   normalize_log_mel)
+    rng = np.random.default_rng(3)
+    ns = _mel_pad_lengths(case)
+    clips = [(rng.standard_normal(n) * 10.0 ** rng.uniform(-8, 5, n))
+             .astype(np.float32) for n in ns]
+    want = host_padded_stack(clips)
+    parts, offsets = [rng.standard_normal(13).astype(np.float32)], []
+    for c in clips:
+        offsets.append(sum(len(p) for p in parts))
+        parts += [c, rng.standard_normal(5).astype(np.float32)]
+    flat = torch.from_numpy(np.concatenate(parts)).to(cuda)
+    off = torch.tensor(offsets, device=cuda)
+    lens = torch.tensor(ns, device=cuda)
+    before = M.pad_stack.launches
+    got = M.pad_stack(flat, off, lens, want.shape[1])
+    torch.cuda.synchronize()
+    assert M.pad_stack.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int16),
+                                  want.view(np.int16))
+    if case == "edges":
+        for b in range(len(clips)):
+            one = M.pad_stack(flat, off[b:b + 1], lens[b:b + 1],
+                              want.shape[1])
+            np.testing.assert_array_equal(
+                one[0].cpu().numpy().view(np.int16), want[b].view(np.int16))
+    filt = torch.from_numpy(mel_filterbank(128)).to(cuda)
+    tables = M.mel_tables(torch.from_numpy(M.dft_basis()).to(cuda), filt)
+    host = torch.from_numpy(want).to(cuda)
+    assert torch.equal(M.log_mel_raw(got, tables), M.log_mel_raw(host,
+                                                                tables))
+    sane = [(rng.standard_normal(n) * 0.2).astype(np.float32) for n in ns]
+    mel, n_lens = MelFrontend(mel_filterbank(128), cuda).device_batch(sane)
+    ref = normalize_log_mel(M.log_mel_raw(
+        torch.from_numpy(host_padded_stack(sane)).to(cuda), tables))
+    assert torch.equal(mel, ref)
+    assert n_lens == [min(frame_counts(n)[0], ref.shape[2]) for n in ns]
+
+
+def test_mel_front_end_staged_then_outsized(cuda):
+    """Batch after batch through one front end's pinned buffer (each
+    rewriting what the last copied out), then a batch past the buffer,
+    which is copied from pageable memory: each mel equals the host-padded
+    route's, and the span is given 4 bytes a sample."""
+    from godot_whisper_tpu_torch.audio.mel import (MelFrontend,
+                                                   normalize_log_mel)
+    rng = np.random.default_rng(5)
+    filt = mel_filterbank(128)
+    front = MelFrontend(filt, cuda)
+    tables = M.mel_tables(torch.from_numpy(M.dft_basis()).to(cuda),
+                          torch.from_numpy(filt).to(cuda))
+    for k, ns in enumerate(([480_000] * 4, [31_999, 7, 480_001],
+                            [123_457] * 3, [480_000, 200_003])):
+        if k == 3:
+            front.STAGED = sum(ns) - 1
+        clips = [(rng.standard_normal(n) * 0.2).astype(np.float32)
+                 for n in ns]
+        span = CountingSpan()
+        mel, _ = front.device_batch(clips, span=span)
+        ref = normalize_log_mel(M.log_mel_raw(
+            torch.from_numpy(host_padded_stack(clips)).to(cuda), tables))
+        assert torch.equal(mel, ref), ns
+        assert span.counts == {"h2d_bytes": 4 * sum(ns)}
+    assert front._staging.numel() == MelFrontend.STAGED
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import mel_f64, mel_limit, mel_tf32_one_pass, tf32_round
+from chip_smoke import (CountingSpan, host_padded_stack, mel_f64,
+                        mel_limit, mel_tf32_one_pass, tf32_round)
 from godot_whisper_tpu.audio import mel as jax_mel
 from godot_whisper_tpu_torch.audio import mel as port_mel
 from godot_whisper_tpu_torch.ops import mel_kernel
@@ -238,3 +239,87 @@ def test_mel_ctas_one_wave(B, F, sm):
     assert 1 <= c <= -(-F // 8)
     assert c * B <= max(sm, B)
     assert c == -(-F // 8) or c * B > sm - B
+
+
+def _wide_range_clip(rng, n):
+    """n samples over the f16 range and past it: subnormals, halfway
+    cases, values that overflow to inf."""
+    return (rng.standard_normal(n) * 10.0 ** rng.uniform(-8, 5, n)
+            ).astype(np.float32)
+
+
+def _jax_padded_stack(clips):
+    """The JAX package's host padding of a batch: its ``pad_audio`` per
+    clip, numpy's f16 cast, zeros to the longest clip's 30 s bucket."""
+    padded = [jax_mel.pad_audio(c) for c in clips]
+    bucket = max(-(-len(p) // 480_000) * 480_000 for p in padded)
+    stack = np.zeros((len(clips), bucket), dtype=np.float16)
+    with np.errstate(over="ignore"):
+        for i, p in enumerate(padded):
+            stack[i, :len(p)] = p.astype(np.float16)
+    return stack
+
+
+PAD_CASES = [[0], [1], [2], [150], [199], [200], [201], [202], [479_799],
+             [480_000], [480_001],
+             [32_000, 480_000, 71_111, 128_000, 480_000, 99_999, 57_003]]
+PAD_IDS = [str(n[0]) if len(n) == 1 else "mixed" for n in PAD_CASES]
+
+
+@pytest.mark.parametrize("ns", PAD_CASES, ids=PAD_IDS)
+def test_pad_stack_plain_is_host_padding(ns):
+    """The plain pad on a flat buffer (clips back to back between other
+    samples, at offsets no multiple of 8) gives the JAX package's
+    ``pad_audio(c)`` rounded by numpy's f16 cast and zeros to the bucket,
+    bit for bit."""
+    rng = np.random.default_rng(len(ns) * 1000 + ns[0] % 997)
+    clips = [_wide_range_clip(rng, n) for n in ns]
+    parts, offsets = [_wide_range_clip(rng, 13)], []
+    for c in clips:
+        offsets.append(sum(len(p) for p in parts))
+        parts += [c, _wide_range_clip(rng, 5)]
+    flat = torch.from_numpy(np.concatenate(parts))
+    want = _jax_padded_stack(clips)
+    got = mel_kernel.pad_stack(flat, torch.tensor(offsets),
+                               torch.tensor(ns), want.shape[1])
+    assert got.dtype == torch.float16 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int16),
+                                  want.view(np.int16))
+
+
+@pytest.mark.parametrize("ns", PAD_CASES, ids=PAD_IDS)
+def test_card_oracle_is_jax_padding(ns):
+    """chip_smoke's ``host_padded_stack``, the oracle of the pad kernel's
+    card tests (which run without the JAX package), equals the JAX
+    package's host padding bit for bit at the same lengths."""
+    rng = np.random.default_rng(len(ns) * 77 + ns[0] % 991)
+    clips = [_wide_range_clip(rng, n) for n in ns]
+    np.testing.assert_array_equal(host_padded_stack(clips).view(np.int16),
+                                  _jax_padded_stack(clips).view(np.int16))
+
+
+def test_device_batch_equals_host_padded_route():
+    """``MelFrontend.device_batch`` on the CPU gives the mel and frame
+    counts of the JAX package's host padding through K1's plain version
+    bit for bit, batch after batch; ``device`` equals row 0 of
+    ``device_batch`` of the clip alone; the span is given 4 bytes a
+    sample shipped."""
+    rng = np.random.default_rng(11)
+    filters = port_mel.mel_filterbank(80)
+    front = port_mel.MelFrontend(filters, device="cpu")
+    tables = mel_kernel.mel_tables(torch.from_numpy(mel_kernel.dft_basis()),
+                                   torch.from_numpy(filters))
+    for ns in ([16_000, 0, 3_001], [40_003, 201, 8_000]):
+        clips = [(rng.standard_normal(n) * 0.2).astype(np.float32)
+                 for n in ns]
+        span = CountingSpan()
+        mel, n_lens = front.device_batch(clips, span=span)
+        want = port_mel.normalize_log_mel(mel_kernel.log_mel_raw(
+            torch.from_numpy(_jax_padded_stack(clips)), tables))
+        assert torch.equal(mel, want)
+        assert n_lens == [min(jax_mel.frame_counts(n)[0], want.shape[2])
+                          for n in ns]
+        assert span.counts == {"h2d_bytes": 4 * sum(ns)}
+    one, n_one = front.device(clips[0])
+    alone, n_alone = front.device_batch([clips[0]])
+    assert torch.equal(one, alone[0]) and n_one == n_alone[0]

@@ -311,7 +311,7 @@ def _feed_jax_mel_and_encoder(monkeypatch, jctx, ctx, audio):
     mel = torch.from_numpy(np.array(jctx.pipeline._mel_device))
     n_len = jctx.pipeline._mel_n_len
     monkeypatch.setattr(ctx.pipeline.mel, "device",
-                        lambda samples: (mel, n_len))
+                        lambda samples, span=None: (mel, n_len))
     jp, jcfg = jctx.pipeline.params, jctx.config
     encode = jax.jit(lambda p, w: jm.encoder_forward(p, jcfg, w))
 

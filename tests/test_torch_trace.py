@@ -34,7 +34,7 @@ PARENT = {"gwt.batch": None, "gwt.mel": "gwt.batch",
           "gwt.gates": "gwt.clip", "gwt.step.state": "gwt.token_loop",
           "gwt.step.sample": "gwt.token_loop",
           "gwt.step.forward": "gwt.token_loop"}
-COUNTS = {"gwt.batch": {"clips"}, "gwt.mel": {"clips"},
+COUNTS = {"gwt.batch": {"clips"}, "gwt.mel": {"clips", "h2d_bytes"},
           "gwt.clip": {"streams"}, "gwt.encode": {"rows"},
           "gwt.cross_kv": {"rows"}, "gwt.prompt": {"rung", "rows"},
           "gwt.token_loop": {"rung", "steps", "graph_steps"},
@@ -126,6 +126,19 @@ def test_token_loop_steps_sum_to_n_decode_over_a_window(batch):
     loops = [r for r in tracer.records() if r.name == "gwt.token_loop"]
     assert len(loops) == 3
     assert sum(r.counts["steps"] for r in loops) == ctx.timings.n_decode - n0
+
+
+def test_mel_span_counts_the_samples_shipped(batch):
+    """``gwt.mel``'s ``h2d_bytes`` is 4 bytes a real sample of the batch's
+    clips (the padding is made on the device), batch after batch."""
+    ctx, bt, clips = batch
+    tracer.enable()
+    tp = gt.TranscribeParams(**dict(PARAMS, max_tokens=1))
+    bt.transcribe(clips, tp)
+    bt.transcribe([clips[1][:7001]], tp)
+    mels = [r for r in tracer.records() if r.name == "gwt.mel"]
+    assert [r.counts["h2d_bytes"] for r in mels] == [
+        4 * sum(len(c) for c in clips), 4 * 7001]
 
 
 def test_per_window_path_spans(batch):
