@@ -33,10 +33,8 @@ from ..models.config import WhisperConfig
 from ..models.model import encoder_forward
 from ..runtime.trace import tracer
 from .filters import FilterContext
-from .window import (StepGraphs, WindowResult, WindowStatics,
-                     prompt_pass_grouped, run_decode_loop, use_split_cache)
-
-SEEK_DELTA_FULL = 3000
+from .window import (SEEK_DELTA_FULL, StepGraphs, WindowResult,
+                     WindowStatics, run_decode_loop)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,24 +251,14 @@ class ClipDecoder:
                 t_idx = 0
                 while t_idx < n_temps and (t_idx == 0 or not settled.all()):
                     temp = float(np.float32(s.temps[t_idx]))
-                    wst = self._wst(t_idx)
-                    g = self.graphs.get(params, wst, xkv)
-                    with tracer.span("gwt.prompt", rung=t_idx, rows=B):
-                        prompt, n_prompt, n_take, used_past = \
-                            self._build_prompt(past_buf, cnt,
-                                               s.temps[t_idx] < 0.5)
-                        last, kv = prompt_pass_grouped(
-                            params, config, torch.from_numpy(prompt).to(dev),
-                            n_prompt, xkv, ND, n_max=N_MAX,
-                            repeat_kv=not use_split_cache(wst), tp=self.tp,
-                            out=None if g is None else g.kv)
+                    prompt, n_prompt, n_take, used_past = self._build_prompt(
+                        past_buf, cnt, s.temps[t_idx] < 0.5)
                     # sampling rungs seed each attempt with seed + rung index
-                    with tracer.span("gwt.token_loop", rung=t_idx) as sp:
-                        ls = run_decode_loop(
-                            params, config, self.fctx, wst, xkv, kv, last,
-                            rep(n_prompt), temp, rep(seek), rep(seek_end),
-                            s.seed + t_idx, graph=g)
-                        sp.set(steps=ls.n_steps, graph_steps=ls.graph_steps)
+                    ls = run_decode_loop(
+                        params, config, self.fctx, self._wst(t_idx),
+                        self.graphs, xkv, torch.from_numpy(prompt).to(dev),
+                        n_prompt, temp, rep(seek), rep(seek_end),
+                        s.seed + t_idx, rung=t_idx)
 
                     # ---- per-stream ranking + gates (whisper.cpp:5611-5671)
                     with tracer.span("gwt.gates"):

@@ -122,9 +122,6 @@ class Grammar:
         self._dedupe()
 
     # ------------------------------------------------------------- internals
-    def _el(self, entry: StackEntry) -> Element:
-        return self.rules[entry[0]][entry[1]]
-
     def _is_eos(self, rule_id: int, pos: int) -> bool:
         t = self.rules[rule_id][pos].type
         return t in (GreType.END, GreType.ALT)

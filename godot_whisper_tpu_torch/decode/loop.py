@@ -386,8 +386,8 @@ class WhisperPipeline:
         """Encode mel[seek : seek + 2 * n_ctx] -> (enc_out, CrossKV), the
         cross-KV int8 (QuantCrossKV) with ``quant_kv``
         (whisper_encode_internal's window slice, whisper.cpp:1697-1706).
-        On one CUDA device the cross-KV is the pipeline's buffer
-        (``StepGraphs.cross_kv``), which the next call overwrites."""
+        The cross-KV is the pipeline's buffer (``StepGraphs.cross_kv``),
+        which the next call overwrites."""
         n_ctx = audio_ctx or self.config.n_audio_ctx
         t0 = time.perf_counter()
         dev = self._mel_device.device

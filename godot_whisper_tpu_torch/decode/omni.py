@@ -47,19 +47,19 @@ from ..runtime.metrics import Timings
 from ..runtime.trace import tracer
 from .loop import Segment, TokenData
 from .params import TranscribeParams
-from .window import GraphedStep, _one_cuda_device
+from .window import GraphedStep, StepCache
 
 WINDOW_FRAMES = 3000                 # the encoder's 30 s window of mel frames
 
 
 class LMStepGraph(GraphedStep):
-    """One batch shape's ``lm_step`` captured as a CUDA graph
-    (``decode/window.py::GraphedStep``), with the static buffers it reads
-    and writes: the step's tokens, positions and cache slot (one upload a
-    step), the K/V cache (the prefill writes it in place), the routing
-    counts, the logits, and with ``record_routes`` the chosen sets by
-    position (``routes``, the prefill's too).  Off a CUDA device the step
-    runs eagerly on the same buffers."""
+    """One batch shape's ``lm_step`` (``decode/window.py::GraphedStep``:
+    replayed from a CUDA graph on one CUDA device, else run eagerly), with
+    the static buffers it reads and writes: the step's tokens, positions
+    and cache slot (one upload a step), the K/V cache (the prefill writes
+    it in place), the routing counts, the logits, and with
+    ``record_routes`` the chosen sets by position (``routes``, the
+    prefill's too)."""
 
     def __init__(self, cfg: unimoe.UniMoEConfig, batch: int, capacity: int,
                  dtype, device, record_routes: bool = False):
@@ -78,32 +78,29 @@ class LMStepGraph(GraphedStep):
                               self._inp[2 * B:], counts=self.counts,
                               routes=self.routes)
 
-    def _eager(self, params, cfg) -> None:
+    def _warm(self, params, cfg) -> None:
         snap = self.counts.clone()
         self._run(params, cfg)
         self.counts.copy_(snap)          # the replay counts the step
 
     def step(self, params, cfg, tokens: np.ndarray, position: int
              ) -> torch.Tensor:
-        """One LM step of every row at ``position`` (also the cache slot)
-        by replay, by capture first; returns the static logits (B, V).
-        The caller synchronises on the step's outputs before the next call
-        (the loop's transfer does), which writes the upload buffer again."""
+        """One LM step of every row at ``position`` (also the cache slot),
+        ``run``; returns the logits (B, V).  The caller synchronises on the
+        step's outputs before the next call (the loop's transfer does),
+        which writes the upload buffer again."""
         B = self.batch
         self._host_np[:B] = tokens
         self._host_np[B:2 * B] = position
         self._host_np[2 * B] = position
-        if torch.device(self.device).type != "cuda":
-            self.upload()
-            return self._run(params, cfg)
-        return self.replay(lambda: self._run(params, cfg),
-                           lambda: self._eager(params, cfg))
+        return self.run(lambda: self._run(params, cfg),
+                        lambda: self._warm(params, cfg))
 
 
 class UniMoEContext:
     """The speech path of a ``UniMoEConfig`` model on one device: its
     weights (used in place), the mel front end, the prompt around the
-    audio tokens, and the token loop's graphs by batch shape.
+    audio tokens, and the token loop's step of one batch shape.
     ``record_routes``: keep every chosen set of the last batch on the
     device (``last_routes``), for a check; off, the step writes none."""
 
@@ -120,7 +117,7 @@ class UniMoEContext:
         self.timings = Timings()
         self.record_routes = bool(record_routes)
         self._routes_of = None           # (graph, positions) of last batch
-        self._graphs = {}
+        self._steps = StepCache()
         self.suppress = torch.zeros(config.n_vocab, dtype=torch.bool,
                                     device=self.device)
 
@@ -141,16 +138,11 @@ class UniMoEContext:
                 + len(self.prompt_tail))
 
     def graph(self, batch: int, capacity: int) -> LMStepGraph:
-        """The step graph (and K/V cache) of one batch shape; one shape is
-        kept at a time."""
-        key = (batch, capacity)
-        if key not in self._graphs:
-            self._graphs.clear()
-            self._graphs[key] = LMStepGraph(
-                self.config, batch, capacity,
-                unimoe.compute_dtype_of(self.params), self.device,
-                self.record_routes)
-        return self._graphs[key]
+        """The step (and K/V cache) of one batch shape (``StepCache``)."""
+        return self._steps.get((batch, capacity), lambda: LMStepGraph(
+            self.config, batch, capacity,
+            unimoe.compute_dtype_of(self.params), self.device,
+            self.record_routes))
 
     # ---------------------------------------------------------- a batch
     def rows(self, clips: Sequence[np.ndarray]):
@@ -224,15 +216,14 @@ class UniMoEContext:
                     cfg.n_layer, B, P, cfg.n_choices).permute(2, 0, 1, 3)
             del x, rec
         g.counts.zero_()
+        g.load()
         state = torch.tensor([[0, -1, -1, 0, 0, 0, 1]] * B, dtype=torch.int32,
                              device=dev)
-        graphed = _one_cuda_device(dev, None)
         tokens = np.zeros((B, n_max), np.int32)
         plogs = np.zeros((B, n_max), np.float32)
         done = np.zeros(B, bool)
         n_done = np.full(B, n_max)
         counts = np.zeros(4, np.int64)
-        replays = g.replays
         with tracer.span("gwt.token_loop") as sp:
             for i in range(n_max):
                 with tracer.span("gwt.step.sample"):
@@ -257,12 +248,7 @@ class UniMoEContext:
                 with tracer.span("gwt.step.forward"):
                     logits = g.step(params, cfg, ids, P + i)
             steps = i + 1
-            # the steps that replayed the graph, counted as the Whisper
-            # loop counts them: every sample when each forward replayed
-            replays = g.replays - replays
-            sp.set(steps=steps,
-                   graph_steps=steps if graphed and replays == steps - 1
-                   else replays,
+            sp.set(steps=steps, graph_steps=g.graph_steps(),
                    token_layers=int(counts[0]), routed_pairs=int(counts[1]),
                    null_picks=int(counts[2]), experts_hit=int(counts[3]))
         self.timings.n_decode += steps

@@ -61,11 +61,14 @@ def _audio(seconds, five_s_golden=False):
 
 @pytest.mark.parametrize("merged", [False, True],
                          ids=["split_cache", "merged_cache"])
-def test_window_beam5_golden(merged):
+def test_window_beam5_golden(merged, monkeypatch):
     """WindowDecoder.decode(strategy="beam", beam_size=5) on nano (seed 3,
     f32) reproduces nano_decode.json["beam5"] exactly: through the split
     cache (nano's 4 heads x 5 beams <= 128: K7's path), and with the merged
     cache forced (the wide configurations' path: K8 reorders it)."""
+    if merged:
+        from godot_whisper_tpu_torch.decode import window
+        monkeypatch.setattr(window, "use_split_cache", lambda st: False)
     cfg = _small_cfg(gt, "nano")
     ctx = gt.WhisperContext.from_params(
         cfg, gt.init_params(cfg, seed=3, compute_dtype=torch.float32,
@@ -80,7 +83,7 @@ def test_window_beam5_golden(merged):
                     n_decoders=5, temperature=0.0, strategy="beam",
                     beam_size=5, seek=0, seek_end=500, suppress_blank=True,
                     no_timestamps=False, single_segment=False, max_tokens=0,
-                    test_mode=False, force_merged_cache=merged)
+                    test_mode=False)
     n = min(res.n_steps, 48)
     got = {"n_steps": res.n_steps,
            "tokens": [[int(x) for x in r[:n]] for r in res.tokens],

@@ -1443,16 +1443,19 @@ def turbo():
 
 @pytest.mark.parametrize("route", ["greedy", "sampling", "int8_decoder",
                                    "int8_cross"])
-def test_token_loop_graph_replays_the_eager_loop(cuda, turbo, route):
-    """``run_decode_loop`` at B 32 replaying one captured step equals the
-    same loop run eagerly, every WindowResult field bit for bit, over 61
-    steps, in two windows (the first captures, the second only replays):
-    greedy, t = 0.4 sampling at kv_group 4 (K4), an int8 decoder (K9),
-    int8 cross-KV (K12).  The kernel wrappers' counters read the eager
-    loop's launches in both windows."""
-    from godot_whisper_tpu_torch.decode.window import (
-        StepGraphs, WindowResult, WindowStatics, prompt_pass_grouped,
-        run_decode_loop)
+def test_token_loop_graph_replays_the_eager_loop(cuda, turbo, route,
+                                                 monkeypatch):
+    """``run_decode_loop`` at B 32 replaying one captured step, and the
+    same loop with a ``StepGraph`` that does not replay, each equal an
+    eager loop written here apart from ``StepGraph`` (a fresh cache, the
+    inputs uploaded each step, the cache slot a host int), every
+    WindowResult field but ``graph_steps`` bit for bit, over 61 steps, in
+    two windows (the first captures, the second only replays): greedy,
+    t = 0.4 sampling at kv_group 4 (K4), an int8 decoder (K9), int8
+    cross-KV (K12).  The kernel wrappers' counters read the eager loop's
+    launches in every window."""
+    from types import SimpleNamespace
+    from godot_whisper_tpu_torch.decode import window as W
     from godot_whisper_tpu_torch.ops.cross_attention import xattn_q_packed
     from godot_whisper_tpu_torch.ops.qmatmul import quant_matmul
     cfg, ctxs = turbo
@@ -1463,7 +1466,7 @@ def test_token_loop_graph_replays_the_eager_loop(cuda, turbo, route):
     G = B // kv_group
     temp = 0.4 if route == "sampling" else 0.0
     gen = torch.Generator().manual_seed(21)
-    graphs = StepGraphs()
+    graphs = W.StepGraphs()
     xkv = graphs.cross_kv(params, cfg, torch.randn(
         G, 1500, cfg.n_audio_state, generator=gen).to(cuda, torch.bfloat16),
         route == "int8_cross")
@@ -1484,42 +1487,78 @@ def test_token_loop_graph_replays_the_eager_loop(cuda, turbo, route):
     prompt = np.where(np.arange(8)[None] < n_prompt[:, None],
                       rng.integers(0, cfg.token_eot, (G, 8)), 0)
     prompt = torch.from_numpy(prompt.astype(np.int32)).to(cuda)
-    st = WindowStatics(
+    st = W.WindowStatics(
         config=cfg, batch=B, n_max=cfg.n_text_ctx // 2 - 4, prompt_pad=8,
         greedy_argmax=temp == 0.0, suppress_blank=True, no_timestamps=True,
         single_segment=False, max_tokens=60, test_mode=False,
         kv_group=kv_group)
 
-    def run(graph):
-        last, kv = prompt_pass_grouped(
-            params, cfg, prompt, n_prompt, xkv, kv_group, n_max=st.n_max,
-            out=None if graph is None else graph.kv)
-        return run_decode_loop(params, cfg, fctx, st, xkv, kv, last,
-                               np.repeat(n_prompt, kv_group), temp, 0, 3000,
-                               7, graph=graph)
+    class EagerStep:
+        """The token loop's step without ``StepGraph``: its own new cache,
+        ``lo`` and the sampler's state uploaded by themselves, tokens and
+        positions uploaded each step, the cache slot a host int."""
 
-    n0 = launches()
-    want = run(None)
-    eager = since(n0, launches())
+        def __init__(self):
+            self.kv = tm.init_kv_cache(
+                cfg, B, st.prompt_pad + st.n_max,
+                dtype=tm.param_compute_dtype(params), device=cuda)
+
+        def load(self, n):
+            self.lo = torch.as_tensor(n.copy(), device=cuda)
+
+        def set_state(self, state):
+            return torch.from_numpy(state).to(cuda)
+
+        def upload(self):
+            pass
+
+        def step(self, params, config, tokens, positions, slot):
+            assert type(slot) is int
+            return tm.decoder_step(
+                params, config, torch.from_numpy(tokens.copy()).to(cuda),
+                torch.from_numpy(positions.astype(np.int32)).to(cuda),
+                self.kv, xkv, lo=self.lo, slot=slot, split=st.prompt_pad,
+                kv_group=kv_group)[0]
+
+        def graph_steps(self):
+            return 0
+
+    def run(steps):
+        n0 = launches()
+        res = W.run_decode_loop(params, cfg, fctx, st, steps, xkv, prompt,
+                                n_prompt, temp, 0, 3000, 7)
+        return res, since(n0, launches())
+
+    def same(got, want):
+        for f in W.WindowResult._fields:
+            if f != "graph_steps":
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f), err_msg=f)
+
+    want, eager = run(SimpleNamespace(get=lambda *a: EagerStep()))
     assert want.n_steps == 61 and want.graph_steps == 0
     assert min(eager[0][:2 if route == "int8_decoder" else 1]) > 0
+    with monkeypatch.context() as m:     # a step that does not replay
+        m.setattr(W.GraphedStep, "replays_on",
+                  staticmethod(lambda device, tp: False))
+        plain = W.StepGraphs()
+        got, counted = run(plain)
+    assert plain.get(params, st, xkv).graph is None
+    assert got.graph_steps == 0 and counted == eager
+    same(got, want)
+    del plain
     for window in range(2):
         graph = graphs.get(params, st, xkv)
-        assert graph is not None
         assert (graph.graph is None) == (window == 0)
-        n0 = launches()
-        got = run(graph)
-        counted = since(n0, launches())
+        got, counted = run(graphs)
         if window:
             assert counted == eager
         else:    # and the capture's eager step
             assert counted[0] == [n + graph._launches.wrappers[w]
                                   for n, w in zip(eager[0], wrappers)]
+        assert graph.replays == got.n_steps - 1
         assert got.graph_steps == got.n_steps == want.n_steps
-        for f in WindowResult._fields:
-            if f != "graph_steps":
-                np.testing.assert_array_equal(getattr(got, f),
-                                              getattr(want, f), err_msg=f)
+        same(got, want)
 
 
 def test_two_contexts_get_their_own_graphs(cuda):
@@ -1552,6 +1591,6 @@ def test_two_contexts_get_their_own_graphs(cuda):
     assert again == first[0]
     assert loops and all(r.counts["graph_steps"] == r.counts["steps"]
                          for r in loops)
-    held = [c.pipeline._step_graphs._graph for c in ctxs]
+    held = [c.pipeline._step_graphs._steps.step for c in ctxs]
     assert all(g is not None and g.graph is not None for g in held)
     assert held[0] is not held[1] and held[0].xkv[0] is not held[1].xkv[0]

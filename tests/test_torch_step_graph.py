@@ -1,9 +1,12 @@
-"""The token loop's CUDA graph on the CPU: which windows replay it
-(``decode/window.py::graph_eligible``), the step with its cache slot on
-the device equal to the step with a host int, the caches written in place
-for the graph's buffers equal to fresh ones, and the benchmark's reader of
-the loop's ``graph_steps`` count.  The replay itself runs on the card
-(``tests/test_torch_cuda.py -k graph``)."""
+"""The token loop's step on the CPU: which loop a window takes and
+whether its step replays (``decode/window.py::run_decode_loop``,
+``GraphedStep.replays_on``), a greedy window stepping its ``StepGraph``
+eagerly on the step's buffers, the one-shape step cache that the Whisper
+and Uni-MoE steps share (``StepCache``), the step with its cache slot on
+the device equal to the step with a host int, the caches written in
+place for the step's buffers equal to fresh ones, and the benchmark's
+reader of the loop's ``graph_steps`` count.  The replay itself runs on
+the card (``tests/test_torch_cuda.py -k graph``)."""
 
 from types import SimpleNamespace
 
@@ -11,11 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from godot_whisper_tpu_torch.decode.window import (StepGraphs, WindowStatics,
-                                                   graph_eligible,
-                                                   prompt_pass_grouped,
-                                                   use_split_cache)
+import godot_whisper_tpu_torch as gt
+from godot_whisper_tpu_torch.decode import window as W
+from godot_whisper_tpu_torch.decode.filters import build_filter_context
+from godot_whisper_tpu_torch.decode.omni import UniMoEContext
+from godot_whisper_tpu_torch.decode.window import (StepCache, StepGraphs,
+                                                   WindowDecoder,
+                                                   WindowResult,
+                                                   WindowStatics,
+                                                   prompt_pass_grouped)
 from godot_whisper_tpu_torch.models import model as tm
+from godot_whisper_tpu_torch.models import unimoe as U
 from godot_whisper_tpu_torch.models.config import get_config
 from godot_whisper_tpu_torch.models.params import init_params
 from godot_whisper_tpu_torch.ops import decode_attention as D
@@ -48,63 +57,111 @@ def statics(cfg, **kw):
     return WindowStatics(**dict(base, **kw))
 
 
-# route -> (WindowStatics overrides, device, replays the graph)
+# route -> (WindowStatics overrides, device, the loop it takes, its step
+# replays a captured graph)
 ROUTES = {
-    "cpu": ({}, "cpu", False),
-    "beam_split": ({"strategy": "beam"}, "cuda:0", False),
-    "beam_merged": ({"strategy": "beam", "force_merged_cache": True},
-                    "cuda:0", False),
-    "tp": ({"tp": SimpleNamespace(rank=0, size=2)}, "cuda:0", False),
-    "cuda_greedy": ({}, "cuda:0", True),
-    "cuda_sampling": ({"greedy_argmax": False}, "cuda", True),
+    "cpu": ({}, "cpu", "greedy", False),
+    "beam_split": ({"strategy": "beam"}, "cuda:0", "beam", False),
+    "beam_merged": ({"strategy": "beam"}, "cuda:0", "beam", False),
+    "tp": ({"tp": SimpleNamespace(rank=0, size=2)}, "cuda:0", "greedy",
+           False),
+    "cuda_greedy": ({}, "cuda:0", "greedy", True),
+    "cuda_sampling": ({"greedy_argmax": False}, "cuda", "greedy", True),
 }
 
 
+RESULT = SimpleNamespace(n_steps=1, graph_steps=0)
+
+
 @pytest.mark.parametrize("route", sorted(ROUTES))
-def test_graph_eligibility_by_route(nano, route):
-    """Decided from the statics and the device alone: CUDA tensors on one
-    device outside beam search replay the graph; the CPU, both beam caches
-    and tensor parallelism run eagerly."""
-    over, device, want = ROUTES[route]
+def test_graph_eligibility_by_route(nano, monkeypatch, route):
+    """The loop is decided from the statics alone, the replay from the
+    device and ``tp``: greedy and sampling windows write the prompt into
+    their step's cache and take the greedy loop, whose step replays on one
+    CUDA device and runs eagerly on the CPU and under tensor parallelism;
+    both beam caches take a new cache and the beam loop, which steps
+    eagerly."""
+    over, device, loop, replays = ROUTES[route]
+    if route == "beam_merged":     # the wide configurations' K8 path
+        monkeypatch.setattr(W, "use_split_cache", lambda st: False)
     st = statics(nano[0], **over)
     if route.startswith("beam"):
-        assert use_split_cache(st) == (route == "beam_split")
-    assert graph_eligible(st, torch.device(device)) is want
-    assert graph_eligible(st, device) is want
+        assert W.use_split_cache(st) == (route == "beam_split")
+    taken, step = [], SimpleNamespace(kv="the step's cache")
+
+    def prompt_pass(*a, out, **kw):
+        taken.append(("prompt", out))
+        return None, None
+
+    def get(*a):
+        taken.append("step")
+        return step
+    monkeypatch.setattr(W, "prompt_pass_grouped", prompt_pass)
+    monkeypatch.setattr(W, "run_greedy_loop",
+                        lambda *a: taken.append("greedy") or RESULT)
+    monkeypatch.setattr(W, "run_beam_loop",
+                        lambda *a: taken.append("beam") or RESULT)
+    W.run_decode_loop(None, st.config, None, st, SimpleNamespace(get=get),
+                      None, torch.zeros(2, 8, dtype=torch.int32),
+                      np.ones(2, np.int32), 0.0, 0, 3000, 0)
+    assert taken == (["step", ("prompt", step.kv), "greedy"]
+                     if loop == "greedy" else [("prompt", None), "beam"])
+    for dev in (device, torch.device(device)):
+        assert (loop == "greedy"
+                and W.GraphedStep.replays_on(dev, st.tp)) is replays
 
 
-def test_cpu_windows_hold_no_graph(nano):
-    """On the CPU ``StepGraphs.cross_kv`` gives a new cross-KV each call,
-    equal to ``models/model.py``'s, keeps no buffer, and no window gets a
-    graph."""
+def test_cpu_windows_hold_no_graph(nano, monkeypatch):
+    """On the CPU a greedy window steps its ``StepGraph`` eagerly on the
+    step's buffers: the cross-KV buffer and the self-KV cache serve every
+    window, no graph is captured, every step takes its cache slot as a
+    host int, the step counts 0 replays and the loop 0 ``graph_steps``;
+    the second window through the same buffers gives the WindowResult of
+    a fresh decoder (whose own cross-KV becomes its buffer)."""
     cfg, params = nano
+    slots = []
+
+    def step(*a, slot, **kw):
+        slots.append(slot)
+        return tm.decoder_step(*a, slot=slot, **kw)
+    monkeypatch.setattr(W, "decoder_step", step)
+    ctx = gt.WhisperContext.from_params(cfg, params, device="cpu")
+    fctx = build_filter_context(cfg, ctx.pipeline.tokenizer, device="cpu")
+    rng = np.random.default_rng(0)
+    encs = [torch.from_numpy(rng.standard_normal(
+        (1, cfg.n_audio_ctx, cfg.n_audio_state)).astype(np.float32))
+        for _ in range(2)]
+    kw = dict(n_decoders=2, temperature=0.4, seek=0, seek_end=500,
+              suppress_blank=True, no_timestamps=False, single_segment=False,
+              max_tokens=12, test_mode=False, seed=1)
+    sot = np.asarray([cfg.token_sot], np.int32)
     graphs = StepGraphs()
-    enc = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (2, cfg.n_audio_ctx, cfg.n_audio_state)).astype(np.float32))
-    xkv = graphs.cross_kv(params, cfg, enc, False)
-    want = tm.cross_kv(params, cfg, enc)
-    assert torch.equal(xkv.k, want.k) and torch.equal(xkv.v, want.v)
-    assert graphs.cross_kv(params, cfg, enc, False).k is not xkv.k
-    assert graphs.get(params, statics(cfg, batch=10, kv_group=5), xkv) is None
-    assert graphs._xkv is None and graphs._graph is None
-
-
-def _stub_graph(st, device, cdtype, xkv):
-    return SimpleNamespace(st=st, xkv=xkv, kv=None)
+    wd = WindowDecoder(cfg, fctx, graphs=graphs)
+    x1 = graphs.cross_kv(params, cfg, encs[0], False)
+    first = wd.decode(params, x1, sot, **kw)
+    step = graphs._steps.step
+    x2 = graphs.cross_kv(params, cfg, encs[1], False)
+    assert x2.k is x1.k and x2.k is step.xkv.k
+    got = wd.decode(params, x2, sot, **kw)
+    assert graphs._steps.step is step
+    assert step.graph is None and step.replays == 0
+    assert slots and all(type(s) is int for s in slots)
+    assert first.graph_steps == got.graph_steps == 0 and got.n_steps > 1
+    want = WindowDecoder(cfg, fctx).decode(
+        params, tm.cross_kv(params, cfg, encs[1]), sot, **kw)
+    for f in WindowResult._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
 
 
 @pytest.mark.parametrize("quant", [False, True])
-def test_step_graphs_keep_one_buffer_and_one_shape(nano, monkeypatch,
-                                                   quant):
-    """With the CPU taken for one CUDA device (and a stub for the
-    capture): ``cross_kv`` writes every window into one buffer, equal to a
-    new cross-KV; ``get`` keeps one captured shape, made anew when the
-    shape changes; beam, tp, a cross-KV made elsewhere and other weights
-    get none; a cross-KV of another shape, or other weights, drop the
-    buffer with the graph."""
-    from godot_whisper_tpu_torch.decode import window as W
-    monkeypatch.setattr(W, "_one_cuda_device", lambda device, tp: tp is None)
-    monkeypatch.setattr(W, "StepGraph", _stub_graph)
+def test_step_graphs_keep_one_buffer_and_one_shape(nano, quant):
+    """``cross_kv`` writes every window into one buffer, equal to a new
+    cross-KV, under tensor parallelism too; ``get`` keeps one step shape
+    (``StepCache``), made anew when the shape changes; a cross-KV made
+    elsewhere becomes the buffer that the step reads; other weights or a
+    cross-KV of another shape drop the buffer with the step.  The Uni-MoE
+    context keeps its step by the same policy."""
     cfg, params = nano
     rng = np.random.default_rng(1)
 
@@ -116,35 +173,59 @@ def test_step_graphs_keep_one_buffer_and_one_shape(nano, monkeypatch,
         x = tm.cross_kv(params, cfg, e)
         return tm.quantize_cross_kv(x, cfg.n_text_head) if quant else x
 
+    def same(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(a[:-1], b[:-1]))
+
     graphs = StepGraphs()
     e1, e2 = enc(2), enc(2)
     x1 = graphs.cross_kv(params, cfg, e1, quant)
     x2 = graphs.cross_kv(params, cfg, e2, quant)
     assert x2[0] is x1[0] and x2.t_valid == cfg.n_audio_ctx
-    for a, b in zip(x2[:-1], fresh(e2)[:-1]):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert same(x2, fresh(e2))
 
     st = statics(cfg, batch=10, kv_group=5)
     g = graphs.get(params, st, x2)
-    assert g is not None and g.xkv[0] is x2[0]
-    assert graphs.get(params, st, x2) is g
+    assert isinstance(graphs._steps, StepCache)
+    assert g.xkv[0] is x2[0] and graphs.get(params, st, x2) is g
     g16 = graphs.get(params, statics(cfg, batch=10, kv_group=5,
                                      prompt_pad=16), x2)
     again = graphs.get(params, st, x2)
     assert g16 is not g and again is not g and again is not g16
-    assert graphs.get(params, statics(cfg, strategy="beam"), x2) is None
-    assert graphs.get(params, statics(cfg, tp=SimpleNamespace()), x2) is None
-    assert graphs.get(params, st, fresh(e2)) is None
-    assert graphs.get(dict(params), st, x2) is None
+    tp = graphs.get(params, statics(cfg, tp=SimpleNamespace(rank=0,
+                                                            size=1)), x2)
+    assert tp is not again and tp.tp is not None and tp.xkv[0] is x2[0]
+
+    made = fresh(e2)
+    h = graphs.get(params, st, made)
+    assert h is not again and h.xkv[0] is made[0] and graphs._xkv is made
+    assert graphs.get(params, st, made) is h
+    other = graphs.get(dict(params), st, made)
+    assert other is not h and other.xkv[0] is made[0]
 
     x3 = graphs.cross_kv(params, cfg, enc(3), quant)
-    assert x3[0] is not x1[0] and graphs._graph is None
+    assert x3[0] is not x1[0] and graphs._steps.step is None
     assert graphs.cross_kv(params, cfg, enc(3), quant)[0] is x3[0]
-    other = dict(params)
-    assert graphs.cross_kv(other, cfg, enc(3), quant)[0] is not x3[0]
-    x4 = graphs.cross_kv(params, cfg, enc(3), quant, tp=SimpleNamespace(
+    assert graphs.cross_kv(dict(params), cfg, enc(3), quant)[0] \
+        is not x3[0]
+    e4 = enc(3)
+    x4 = graphs.cross_kv(params, cfg, e4, quant, tp=SimpleNamespace(
         rank=0, size=1))
-    assert x4[0] is not graphs._xkv[0]
+    assert x4[0] is graphs._xkv[0] and same(x4, fresh(e4))
+
+    ucfg = U.UniMoEConfig(
+        name="unimoe-nano", n_vocab=64, n_state=32, n_layer=1, n_head=2,
+        n_kv_head=1, head_dim=16, n_shared=1, shared_ffn=16, n_routed=2,
+        n_null=1, routed_ffn=16, top_p=0.7, top_k=1,
+        audio=cfg.replace(n_audio_ctx=1500), token_eot=63)
+    uctx = UniMoEContext(ucfg, U.init_params(ucfg, seed=1), device="cpu",
+                         mel_filters=np.zeros((80, 201), np.float32),
+                         prompt_head=[1], prompt_tail=[2])
+    assert isinstance(uctx._steps, StepCache)
+    s1 = uctx.graph(2, 128)
+    assert uctx.graph(2, 128) is s1 and s1.graph_steps() == 0
+    s2 = uctx.graph(3, 128)
+    assert s2 is not s1 and uctx.graph(2, 128) not in (s1, s2)
 
 
 def test_captured_launches_count_at_each_replay():

@@ -265,7 +265,7 @@ def test_routes_are_kept_only_when_asked(small):
         tracer.enabled = was
         tracer.clear()
     assert ctx.last_routes is None
-    assert all(g.routes is None for g in ctx._graphs.values())
+    assert ctx._steps.step.routes is None
     assert len(loop) == 1 and loop[0].counts["graph_steps"] == 0
     assert loop[0].counts["steps"] >= 1
 
